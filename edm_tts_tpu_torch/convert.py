@@ -1,0 +1,146 @@
+"""Weights for the port's models: reference checkpoints and seeded random init.
+
+``load_reference_state_dict`` takes a state dict in the reference
+(``from_pretrained``) format as numpy arrays — what the JAX package's
+``models/{codec,t2s,s2a}/convert.py::to_torch_state_dict`` emit — folds
+every weight-norm pair into its effective weight and loads the result
+strictly: every key is used and every parameter and buffer is filled.
+
+``init_random_weights`` fills a model from a seed, for runs that have no
+checkpoint (the card's smoke run): same shapes and scales as a fresh model,
+deterministic for a given seed and device.
+
+Both end by laying the codec decoder's weights out once as its kernels take
+them (``Decoder.pack``).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+from edm_tts_tpu_torch.models.codec.decoder import Decoder
+from edm_tts_tpu_torch.models.codec.layers import Snake, WNConv1d, WNConvTranspose1d
+from edm_tts_tpu_torch.models.conformer.conformer import ChanLayerNorm
+from edm_tts_tpu_torch.models.s2a.model import InjectionConformer, _StackedLogits
+from edm_tts_tpu_torch.models.t2s.model import TextToSemantic
+from edm_tts_tpu_torch.ops import weight_norm
+
+# both torch weight-norm spellings: the legacy hook's and parametrize's
+_WN_PARTS = {
+    ".weight_g": "g",
+    ".weight_v": "v",
+    ".parametrizations.weight.original0": "g",
+    ".parametrizations.weight.original1": "v",
+}
+
+
+def fold_weight_norm(sd: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor]:
+    """Replace each ``(g, v)`` pair by ``<prefix>.weight = g * v / ||v||``.
+
+    torch's ``weight_norm(dim=0)`` takes the norm over every dim but the
+    first, for Conv1d (per output channel), ConvTranspose1d (per *input*
+    channel) and the RVQ's 1x1 projections alike.
+    """
+    out: dict[str, torch.Tensor] = {}
+    pairs: dict[str, dict[str, np.ndarray]] = {}
+    for key, arr in sd.items():
+        for suffix, part in _WN_PARTS.items():
+            if key.endswith(suffix):
+                pairs.setdefault(key[: -len(suffix)], {})[part] = arr
+                break
+        else:
+            out[key] = torch.as_tensor(np.array(arr))
+    for prefix, pair in pairs.items():
+        if set(pair) != {"g", "v"}:
+            raise KeyError(f"weight norm pair at {prefix!r} is incomplete: {sorted(pair)}")
+        v = torch.as_tensor(np.asarray(pair["v"], np.float32))
+        g = torch.as_tensor(np.asarray(pair["g"], np.float32)).reshape(-1)
+        out[f"{prefix}.weight"] = weight_norm(v.movedim(0, -1), g).movedim(-1, 0)
+    return out
+
+
+def load_reference_state_dict(module: nn.Module, sd: Mapping[str, np.ndarray]) -> None:
+    """Load a reference-format numpy state dict into ``module``, strictly."""
+    folded = fold_weight_norm(sd)
+    own = module.state_dict()
+    for key, t in folded.items():
+        if key in own and tuple(t.shape) != tuple(own[key].shape):
+            raise ValueError(f"{key}: checkpoint shape {tuple(t.shape)} != "
+                             f"model shape {tuple(own[key].shape)}")
+    module.load_state_dict(folded, strict=True)
+    _pack_decoders(module)
+
+
+def _pack_decoders(module: nn.Module) -> None:
+    for m in module.modules():
+        if isinstance(m, Decoder):
+            m.pack()
+
+
+@torch.no_grad()
+def init_random_weights(module: nn.Module, seed: int) -> None:
+    """Fill every parameter of ``module`` from ``seed``.
+
+    Convs (weight-normed or not): U(+-1/sqrt(fan_in)) as torch initialises
+    them; linears and the stacked logits head: N(0, 1/fan_in); embeddings,
+    codebooks and the learned tokens: N(0, 1); snake alphas U(0.5, 2), so
+    that a decode exercises them; norm scales: 1; other biases: 0.
+    """
+    gens: dict[torch.device, torch.Generator] = {}
+
+    def gen(p: torch.Tensor) -> torch.Generator:
+        if p.device not in gens:
+            gens[p.device] = torch.Generator(device=p.device).manual_seed(seed)
+        return gens[p.device]
+
+    def uniform(p: torch.Tensor, fan_in: int) -> None:
+        bound = 1.0 / math.sqrt(fan_in)
+        p.uniform_(-bound, bound, generator=gen(p))
+
+    done: set[int] = set()
+    for m in module.modules():
+        own = list(m.parameters(recurse=False))
+        if isinstance(m, WNConv1d):
+            fan_in = m.weight.shape[1] * m.weight.shape[2]
+            uniform(m.weight, fan_in)
+            uniform(m.bias, fan_in)
+        elif isinstance(m, WNConvTranspose1d):
+            fan_in = m.weight.shape[1] * m.weight.shape[2]  # torch: C_out * K
+            uniform(m.weight, fan_in)
+            uniform(m.bias, fan_in)
+        elif isinstance(m, nn.Conv1d):
+            uniform(m.weight, m.weight.shape[1] * m.weight.shape[2])
+            m.bias.zero_()
+        elif isinstance(m, nn.Linear):
+            m.weight.normal_(0.0, m.in_features ** -0.5, generator=gen(m.weight))
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, _StackedLogits):
+            m.weight.normal_(0.0, m.weight.shape[1] ** -0.5, generator=gen(m.weight))
+            m.bias.zero_()
+        elif isinstance(m, nn.Embedding):
+            m.weight.normal_(0.0, 1.0, generator=gen(m.weight))
+        elif isinstance(m, Snake):
+            m.alpha.uniform_(0.5, 2.0, generator=gen(m.alpha))
+        elif isinstance(m, ChanLayerNorm):
+            for p in own:
+                p.fill_(1.0)
+        elif isinstance(m, nn.LayerNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+        elif isinstance(m, TextToSemantic):
+            m.length_token.normal_(0.0, 1.0, generator=gen(m.length_token))
+        elif isinstance(m, InjectionConformer):
+            m.mask_token.normal_(0.0, 1.0, generator=gen(m.mask_token))
+        else:
+            continue
+        done.update(id(p) for p in own)
+    missed = [n for n, p in module.named_parameters() if id(p) not in done]
+    if missed:
+        raise RuntimeError(f"init_random_weights: no rule for {missed[:5]}")
+    _pack_decoders(module)

@@ -1,0 +1,92 @@
+"""Build the port's CUDA kernels with nvcc and bind them with ctypes.
+
+The sources are ``edm_tts_tpu_torch/csrc/*.cu`` (plain C entry points, no
+PyTorch headers, so one nvcc call takes seconds). The shared library is
+built at first use into ``edm_tts_tpu_torch/_build/``, keyed on a hash of
+the sources and the flags, so a checkout builds everything it needs from
+its own files and a changed source never loads a stale library.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC_DIR.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(cuda_home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError(
+            "nvcc not found on PATH or under CUDA_HOME; the port's kernels "
+            "are built on a machine with the CUDA toolkit"
+        )
+    return str(path)
+
+
+def build() -> Path:
+    """Compile ``csrc/*.cu`` into one shared library; returns its path.
+
+    Raises RuntimeError with nvcc's stderr when the build fails.
+    """
+    out = BUILD_DIR / f"libedm_kernels_{_digest()}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
+        )
+    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The built kernel library with its C signatures declared."""
+    lib = ctypes.CDLL(str(build()))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.edm_resunit.argtypes = [ptr] * 8 + [i32] * 4 + [ptr]
+    lib.edm_tconv_phase.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
+    lib.edm_attention.argtypes = [ptr] * 5 + [i32] * 5 + [ptr]
+    for fn in (lib.edm_resunit, lib.edm_tconv_phase, lib.edm_attention):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check_launch(err: int, name: str) -> None:
+    """Raise if a kernel entry point returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")

@@ -1,0 +1,182 @@
+"""Conformer backbone of the t2s and s2a stages (port of
+edm_tts_tpu/models/conformer/conformer.py).
+
+Block: ``x + 0.5*FF(LN x)`` -> ``x + MHSA(LN x, RoPE)`` -> ``x + Conv(x)``
+-> ``x + 0.5*FF(LN x)`` -> ``LN x``. Module names follow the reference
+checkpoint keys (``ff1.fn.norm``, ``attn.fn.to_q``, ``conv.net.4.conv``...),
+so a reference state dict loads as it is. Things that differ from torch's
+defaults and are kept from the JAX package:
+
+- every LayerNorm has eps 1e-6 (flax's default);
+- ``ChanLayerNorm`` divides by ``sqrt(max(var, 1e-6))``, not ``var + eps``;
+- the GLU takes the first half as the value and the second as the gate;
+- the depthwise conv pads ``(k//2, k//2 - (k+1)%2)`` and ``conv_pad_mask``
+  zeroes invalid positions right before it;
+- q and k/v are separate bias-free linears; ``heads * dim_head`` may differ
+  from ``dim`` (the t2s model runs 8 x 24 = 192 inside a width of 384).
+
+Attention goes through ``ops.mha``: kernel K3 on the card.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from edm_tts_tpu_torch.ops import apply_rope, mha, rope_frequencies
+
+LN_EPS = 1e-6
+
+
+@dataclasses.dataclass(frozen=True)
+class ConformerConfig:
+    dim: int = 512
+    depth: int = 8
+    dim_head: int = 64
+    heads: int = 8
+    ff_mult: int = 4
+    conv_expansion_factor: int = 2
+    conv_kernel_size: int = 31
+
+
+class _PreNorm(nn.Module):
+    def __init__(self, dim: int, fn: nn.Module, **kw):
+        super().__init__()
+        self.norm = nn.LayerNorm(dim, eps=LN_EPS, **kw)
+        self.fn = fn
+
+    def forward(self, x, **kwargs):
+        return self.fn(self.norm(x), **kwargs)
+
+
+class _Scale(nn.Module):
+    def __init__(self, scale: float, fn: nn.Module):
+        super().__init__()
+        self.scale = scale
+        self.fn = fn
+
+    def forward(self, x):
+        return self.fn(x) * self.scale
+
+
+class FeedForward(nn.Module):
+    """Linear -> Swish -> Linear; ``net.0`` and ``net.3`` as in the reference."""
+
+    def __init__(self, dim: int, mult: int, **kw):
+        super().__init__()
+        self.net = nn.Sequential(
+            nn.Linear(dim, dim * mult, **kw), nn.SiLU(), nn.Identity(),
+            nn.Linear(dim * mult, dim, **kw), nn.Identity(),
+        )
+
+    def forward(self, x):
+        return self.net(x)
+
+
+class Attention(nn.Module):
+    def __init__(self, dim: int, heads: int, dim_head: int, **kw):
+        super().__init__()
+        self.heads, self.dim_head = heads, dim_head
+        inner = heads * dim_head
+        self.to_q = nn.Linear(dim, inner, bias=False, **kw)
+        self.to_kv = nn.Linear(dim, 2 * inner, bias=False, **kw)
+        self.to_out = nn.Linear(inner, dim, **kw)
+
+    def forward(self, x, *, rope=None, mask=None):
+        b, t, _ = x.shape
+        shape = (b, t, self.heads, self.dim_head)
+        q = self.to_q(x).view(shape)
+        k, v = (y.reshape(shape) for y in self.to_kv(x).chunk(2, dim=-1))
+        if rope is not None:
+            q = apply_rope(rope[:, None, :], q)
+            k = apply_rope(rope[:, None, :], k)
+        out = mha(q.contiguous(), k.contiguous(), v.contiguous(), mask=mask)
+        return self.to_out(out.reshape(b, t, -1))
+
+
+class ChanLayerNorm(nn.Module):
+    """Scale-only LayerNorm over channels, biased variance, weight ``(1, C, 1)``."""
+
+    def __init__(self, dim: int, **kw):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(1, dim, 1, **kw))
+
+    def forward(self, x):
+        xf = x.float()
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = (xf - mean).square().mean(dim=-1, keepdim=True)
+        y = (xf - mean) * torch.rsqrt(var.clamp_min(1e-6))
+        return (y * self.weight.view(-1)).to(x.dtype)
+
+
+class _DepthWiseConv1d(nn.Module):
+    def __init__(self, dim: int, kernel_size: int, **kw):
+        super().__init__()
+        self.padding = (kernel_size // 2, kernel_size // 2 - (kernel_size + 1) % 2)
+        self.conv = nn.Conv1d(dim, dim, kernel_size, groups=dim, **kw)
+
+    def forward(self, x):
+        y = F.conv1d(F.pad(x.transpose(1, 2), self.padding), self.conv.weight,
+                     self.conv.bias, groups=x.shape[-1])
+        return y.transpose(1, 2)
+
+
+class ConvModule(nn.Module):
+    """LN -> pointwise (dim -> 2*inner) -> GLU -> depthwise -> Swish ->
+    ChanLayerNorm -> pointwise (inner -> dim); ``net.{0,2,4,6,7}``."""
+
+    def __init__(self, dim: int, expansion_factor: int, kernel_size: int, **kw):
+        super().__init__()
+        inner = dim * expansion_factor
+        self.net = nn.ModuleList([
+            nn.LayerNorm(dim, eps=LN_EPS, **kw), nn.Identity(),
+            nn.Conv1d(dim, 2 * inner, 1, **kw), nn.Identity(),
+            _DepthWiseConv1d(inner, kernel_size, **kw), nn.Identity(),
+            ChanLayerNorm(inner, **kw), nn.Conv1d(inner, dim, 1, **kw),
+        ])
+
+    def forward(self, x, *, pad_mask=None):
+        norm, _, pw_in, _, depthwise, _, chan_norm, pw_out = self.net
+        x = F.linear(norm(x), pw_in.weight[:, :, 0], pw_in.bias)
+        val, gate = x.chunk(2, dim=-1)
+        x = val * torch.sigmoid(gate)
+        if pad_mask is not None:
+            x = torch.where(pad_mask[:, :, None], x, 0.0)
+        x = depthwise(x)
+        x = chan_norm(x * torch.sigmoid(x))
+        return F.linear(x, pw_out.weight[:, :, 0], pw_out.bias)
+
+
+class ConformerBlock(nn.Module):
+    def __init__(self, cfg: ConformerConfig, **kw):
+        super().__init__()
+        c = cfg
+        self.ff1 = _Scale(0.5, _PreNorm(c.dim, FeedForward(c.dim, c.ff_mult, **kw), **kw))
+        self.attn = _PreNorm(c.dim, Attention(c.dim, c.heads, c.dim_head, **kw), **kw)
+        self.conv = ConvModule(c.dim, c.conv_expansion_factor, c.conv_kernel_size, **kw)
+        self.ff2 = _Scale(0.5, _PreNorm(c.dim, FeedForward(c.dim, c.ff_mult, **kw), **kw))
+        self.post_norm = nn.LayerNorm(c.dim, eps=LN_EPS, **kw)
+
+    def forward(self, x, *, rope=None, mask=None, conv_pad_mask=None):
+        x = x + self.ff1(x)
+        x = x + self.attn(x, rope=rope, mask=mask)
+        x = x + self.conv(x, pad_mask=conv_pad_mask)
+        x = x + self.ff2(x)
+        return self.post_norm(x)
+
+
+class Conformer(nn.Module):
+    def __init__(self, cfg: ConformerConfig, *, device=None, dtype=None):
+        super().__init__()
+        self.cfg = cfg
+        self.layers = nn.ModuleList(
+            ConformerBlock(cfg, device=device, dtype=dtype) for _ in range(cfg.depth))
+
+    def forward(self, x, *, mask=None, conv_pad_mask=None):
+        rope = rope_frequencies(x.shape[-2], self.cfg.dim_head, device=x.device)
+        for block in self.layers:
+            x = block(x, rope=rope, mask=mask, conv_pad_mask=conv_pad_mask)
+        return x

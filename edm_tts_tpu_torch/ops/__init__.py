@@ -1,0 +1,27 @@
+"""Tensor ops of the port (counterparts of edm_tts_tpu/ops)."""
+
+from edm_tts_tpu_torch.ops.attention import flash_mha, mha, mha_reference
+from edm_tts_tpu_torch.ops.convolution import conv1d, conv_transpose1d, weight_norm
+from edm_tts_tpu_torch.ops.decoder_block import (
+    decoder_block_reference,
+    fused_decoder_block,
+)
+from edm_tts_tpu_torch.ops.embedding import embed_take
+from edm_tts_tpu_torch.ops.masking import (
+    positional_categorical,
+    positional_gumbel,
+    random_topk_mask,
+    sampling_mask_ratios,
+)
+from edm_tts_tpu_torch.ops.resunit import fused_residual_unit, resunit_reference
+from edm_tts_tpu_torch.ops.rope import apply_rope, rope_frequencies, rotate_half
+from edm_tts_tpu_torch.ops.snake import cos_fast, snake
+
+__all__ = [
+    "apply_rope", "conv1d", "conv_transpose1d", "cos_fast",
+    "decoder_block_reference", "embed_take", "flash_mha", "fused_decoder_block",
+    "fused_residual_unit", "mha", "mha_reference", "positional_categorical",
+    "positional_gumbel", "random_topk_mask", "resunit_reference",
+    "rope_frequencies", "rotate_half", "sampling_mask_ratios", "snake",
+    "weight_norm",
+]

@@ -1,0 +1,115 @@
+"""The codec DecoderBlock tail: kernel K2 (csrc/decoder_block.cu) and its
+plain version.
+
+Port of edm_tts_tpu/ops/pallas_decoder_block.py (``fused_decoder_block``,
+``_block_ref``, ``_phase_weights``): snake -> transposed conv (k = 2s,
+stride s, padding s/2, even s) -> three residual units (dilations 1, 3, 9).
+
+Both versions take the transposed conv in its phase form, laid out once
+when the model's weights are loaded (``DecoderBlock.pack``): ``w3 =
+phase_weights(kernel)`` ``(3, C_in, s*C_out)`` and the bias tiled ``s``
+times. ``y[q] = sum_m snake(x)[q + m - 1] @ w3[m] + bias3`` is ``(T,
+s*C_out)``, and read row-major it already is the interleaved ``(T*s,
+C_out)`` output.
+
+On the card K2 runs in two parts: its own kernel does snake and the phase
+product, then the three residual units run as K1 launches
+(ops/resunit.py). Each K1 launch zero-pads outside ``[0, T*s)``, which is
+what the Pallas kernel's re-zeroing between stages does, so the two parts
+compute the same block.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from edm_tts_tpu_torch.kernels import launches
+from edm_tts_tpu_torch.kernels.build import check_launch, library
+from edm_tts_tpu_torch.ops.resunit import fused_residual_unit, resunit_reference
+from edm_tts_tpu_torch.ops.snake import snake
+
+DILATIONS = (1, 3, 9)
+
+
+def phase_weights(kernel: torch.Tensor, stride: int) -> torch.Tensor:
+    """``(2s, C_in, C_out)`` transposed-conv kernel -> ``(3, C_in, s*C_out)``.
+
+    ``out[s*q + r] = sum_m x[q + m - 1] @ w3[m][:, r]`` (the derivation in
+    edm_tts_tpu/ops/convolution.py::conv_transpose1d_phases, p = s // 2).
+    """
+    k, cin, cout = kernel.shape
+    s = stride
+    if k != 2 * s or s % 2:
+        raise ValueError(f"phase_weights: needs even s and k == 2s, got k={k}, s={s}")
+    p = s // 2
+    w3 = kernel.new_zeros((3, cin, s, cout))
+    for r in range(s):
+        if r < s - p:
+            w3[0, :, r] = kernel[s + r + p]  # x[q-1]
+            w3[1, :, r] = kernel[r + p]      # x[q]
+        else:
+            w3[1, :, r] = kernel[r + p]      # x[q]
+            w3[2, :, r] = kernel[r + p - s]  # x[q+1]
+    return w3.reshape(3, cin, s * cout)
+
+
+def tconv_phase_reference(x, alpha0, w3, bias3):
+    """snake(x) -> the phase-form transposed conv, one plain product.
+
+    ``x``: ``(B, T, C_in)``; ``w3``: ``(3, C_in, s*C_out)``; returns
+    ``(B, T, s*C_out)``.
+    """
+    t = x.shape[1]
+    y = F.pad(snake(x, alpha0), (0, 0, 1, 1))
+    taps = torch.cat([y[:, m:m + t] for m in range(3)], dim=-1)
+    return taps @ w3.reshape(-1, w3.shape[-1]).to(x.dtype) + bias3.to(x.dtype)
+
+
+def decoder_block_reference(x, alpha0, w3, bias3, ru_params, *, stride: int):
+    """Plain composition: the CPU path and K2's oracle.
+
+    ``ru_params``: three tuples ``(alpha1, w7, b7, alpha2, w1, b1)`` for
+    dilations 1, 3, 9.
+    """
+    b, t, _ = x.shape
+    y = tconv_phase_reference(x, alpha0, w3, bias3).reshape(b, t * stride, -1)
+    for d, p in zip(DILATIONS, ru_params):
+        y = resunit_reference(y, *p, dilation=d)
+    return y
+
+
+def fused_decoder_block(x, alpha0, w3, bias3, ru_params, stride: int):
+    """Decoder block through K2 (+ K1) on the card, the plain version on CPU.
+
+    On CUDA: ``x`` contiguous bf16 ``(B, T, C_in)``; ``w3`` contiguous bf16
+    ``(3, C_in, s*C_out)``; ``alpha0`` and ``bias3`` contiguous f32; ``C_in``
+    and ``C_out`` multiples of 16; the residual units' parameters as
+    ``fused_residual_unit`` takes them.
+    """
+    if not x.is_cuda:
+        return decoder_block_reference(x, alpha0, w3, bias3, ru_params, stride=stride)
+    if x.dtype != torch.bfloat16 or x.dim() != 3 or not x.is_contiguous():
+        raise ValueError(f"fused_decoder_block: x must be contiguous bf16 (B, T, C), "
+                         f"got {x.dtype} {tuple(x.shape)}")
+    b, t, cin = x.shape
+    n = w3.shape[-1]
+    if w3.shape != (3, cin, n) or n % stride or cin % 16 or (n // stride) % 16:
+        raise ValueError(f"fused_decoder_block: C_in={cin}, w3 {tuple(w3.shape)}, stride "
+                         f"{stride} (need w3 (3, C_in, s*C_out), channels % 16 == 0)")
+    for name, p, dtype, shape in (("w3", w3, torch.bfloat16, (3, cin, n)),
+                                  ("alpha0", alpha0, torch.float32, (cin,)),
+                                  ("bias3", bias3, torch.float32, (n,))):
+        if p.dtype != dtype or p.shape != shape or not p.is_contiguous() or p.device != x.device:
+            raise ValueError(f"fused_decoder_block: {name} must be contiguous {dtype} "
+                             f"{shape} on {x.device}")
+    y = torch.empty((b, t * stride, n // stride), dtype=x.dtype, device=x.device)
+    err = library().edm_tconv_phase(
+        x.data_ptr(), alpha0.data_ptr(), w3.data_ptr(), bias3.data_ptr(), y.data_ptr(),
+        b, t, cin, n, torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    check_launch(err, "fused_decoder_block")
+    launches["decoder_block"] += 1
+    for d, p in zip(DILATIONS, ru_params):
+        y = fused_residual_unit(y, *p, d)
+    return y

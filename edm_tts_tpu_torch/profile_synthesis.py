@@ -1,0 +1,129 @@
+"""Where the time of one synthesis request goes on the card.
+
+    python3 -m edm_tts_tpu_torch.profile_synthesis [--out DIR]
+
+Builds bench.py's full-width models in bf16 from a seeded random init (the
+default codec and s2a, the t2s with hidden 384, 12 layers, heads 8 x
+dim_head 24), warms up with two requests, then answers one request of
+bench.py's shape (10 s of audio, a 150-frame prompt, 16 t2s iterations, 8
+s2a steps, full canvas) and each of its three stages under
+``torch.profiler``. Per part it prints the wall time of an untraced run,
+the device kernel time (the sum of the kernels' own device time), the
+busy share (device time over that wall time) and the kernels by device
+time. With ``--out`` each table also goes to ``DIR/profile_<part>.txt``.
+
+``full_width_models`` and ``bench_inputs`` are the models and the request
+that chip_smoke.py drives too.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+from pathlib import Path
+
+import torch
+
+from edm_tts_tpu_torch.convert import init_random_weights
+from edm_tts_tpu_torch.models.codec import CodecConfig
+from edm_tts_tpu_torch.models.s2a import InjectionConformer, S2AConfig, s2a_sample
+from edm_tts_tpu_torch.models.t2s import T2SConfig, TextToSemantic, t2s_sample
+from edm_tts_tpu_torch.pipeline import e2e_synthesize
+
+GEN_FRAMES = 500      # 10 s at 50 Hz
+PROMPT_FRAMES = 150   # 3 s speaker prompt
+TEXT_LEN = 100
+PRED_ITERS = 16
+STEPS = 8
+TEXT = ("The quick brown fox jumps over the lazy dog while a zero-shot voice "
+        "reads this sentence aloud for the smoke run.")
+
+
+def full_width_models(device, seed: int) -> tuple[TextToSemantic, InjectionConformer]:
+    """bench.py's t2s and s2a (with the default codec) in bf16, from ``seed``."""
+    s2a_cfg = S2AConfig(codec=CodecConfig())
+    t2s_cfg = T2SConfig(hidden_size=384, main_encoder_num_layers=12, main_encoder_num_heads=8,
+                        main_encoder_dim_head=24, length_predictor_num_heads=8,
+                        length_predictor_dim_head=24)
+    s2a = InjectionConformer(s2a_cfg, device=device, dtype=torch.bfloat16).eval()
+    t2s = TextToSemantic(t2s_cfg, device=device, dtype=torch.bfloat16).eval()
+    init_random_weights(s2a, seed)
+    init_random_weights(t2s, seed + 1)
+    return t2s, s2a
+
+
+def bench_inputs(s2a_cfg: S2AConfig, device, seed: int) -> dict[str, torch.Tensor]:
+    """Byte-tokenised text (+5), a random prompt and ``gt_length`` 500."""
+    text = torch.tensor([[b + 5 for b in TEXT.encode()[:TEXT_LEN]]], device=device)
+    gen = torch.Generator().manual_seed(seed)
+    prompt_ac = torch.randint(0, s2a_cfg.num_codevectors,
+                              (1, s2a_cfg.num_quantizers, PROMPT_FRAMES), generator=gen)
+    prompt_sem = torch.randint(0, s2a_cfg.num_semantic_tokens, (1, PROMPT_FRAMES), generator=gen)
+    return dict(text=text, text_len=torch.tensor([text.shape[1]], device=device),
+                prompt_ac=prompt_ac.to(device), prompt_sem=prompt_sem.to(device),
+                gt_length=torch.tensor([GEN_FRAMES], device=device))
+
+
+def _profile(name: str, fn, out: Path | None) -> None:
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    # kernels are the device-side events; a CPU op's device time repeats theirs
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in kernels)
+    print(f"[{name}] wall {wall * 1e3:.3f} ms, device kernel time {device_us / 1e3:.3f} ms "
+          f"in {sum(e.count for e in kernels)} kernels, busy share {device_us / 1e6 / wall:.3f}",
+          flush=True)
+    table = events.table(sort_by="self_device_time_total", row_limit=14, max_name_column_width=60)
+    print(table, flush=True)
+    if out is not None:
+        (out / f"profile_{name}.txt").write_text(table)
+
+
+@torch.no_grad()
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--out", type=Path, default=None, help="directory for the tables")
+    parser.add_argument("--seed", type=int, default=0)
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_synthesis: needs a CUDA device")
+    if args.out is not None:
+        args.out.mkdir(parents=True, exist_ok=True)
+    dev = torch.device("cuda", 0)
+    t2s, s2a = full_width_models(dev, args.seed)
+    inp = bench_inputs(s2a.cfg, dev, args.seed)
+
+    def request(seed: int) -> dict:
+        return e2e_synthesize(
+            t2s, s2a, inp["text"], inp["text_len"], inp["prompt_ac"], inp["prompt_sem"],
+            torch.Generator().manual_seed(seed), pred_iters=PRED_ITERS, steps=STEPS,
+            max_speech_len=GEN_FRAMES, gt_length=inp["gt_length"], assume_full_canvas=True)
+
+    for i in range(2):
+        request(i)
+    _profile("e2e", lambda: request(7), args.out)
+    gen = torch.Generator().manual_seed(args.seed + 5)
+    t2s_out = t2s_sample(t2s, inp["text"], inp["text_len"], gen, pred_iters=PRED_ITERS,
+                         max_speech_len=GEN_FRAMES, gt_length=inp["gt_length"])
+    codes = s2a_sample(s2a, t2s_out["semantic_tokens"], inp["prompt_ac"], inp["prompt_sem"],
+                       gen, steps=STEPS)
+    _profile("t2s", lambda: t2s_sample(t2s, inp["text"], inp["text_len"], gen,
+                                       pred_iters=PRED_ITERS, max_speech_len=GEN_FRAMES,
+                                       gt_length=inp["gt_length"]), args.out)
+    _profile("s2a", lambda: s2a_sample(s2a, t2s_out["semantic_tokens"], inp["prompt_ac"],
+                                       inp["prompt_sem"], gen, steps=STEPS), args.out)
+    _profile("decode", lambda: s2a.decode_audio(codes), args.out)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,134 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked ``gpu``; every test skips where there is no CUDA device. These cover
+edge shapes that chip_smoke.py's slice shapes do not: batch > 1, lengths
+that are not a multiple of the tiles, narrow channels, other head dims,
+fully masked leading key tiles, a batch row with no valid key. On the GPU
+machine (no jax there, so the suite's conftest cannot load):
+
+    python3 -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
+
+Tolerance, as in chip_smoke.py: relative l2 error within 2^-6 (kernel and
+plain version round intermediates to bf16 at different points, ~0.3-0.6 %;
+a dropped bias or snake alpha costs 8 % or more at the scales drawn here,
+alphas U(0.5, 2) and biases N(0, 0.5)), and no element off by more than
+2^-5 of the output's largest magnitude.
+"""
+
+import pytest
+import torch
+
+from edm_tts_tpu_torch import ops
+from edm_tts_tpu_torch.kernels import launches, reset_launches
+from edm_tts_tpu_torch.ops.decoder_block import phase_weights
+
+pytestmark = pytest.mark.gpu
+
+REL_L2_TOL = 2.0 ** -6
+MAX_ABS_TOL = 2.0 ** -5
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _check(out, ref):
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and torch.isfinite(out).all()
+    out, ref = out.float(), ref.float()
+    rel = ((out - ref).norm() / ref.norm()).item()
+    err = (out - ref).abs().max().item()
+    assert rel <= REL_L2_TOL and err <= MAX_ABS_TOL * ref.abs().max().item(), (rel, err)
+
+
+def _alpha(c, dev, gen):
+    return 0.5 + 1.5 * torch.rand(c, generator=gen, device=dev)
+
+
+def _bias(c, dev, gen):
+    return 0.5 * torch.randn(c, generator=gen, device=dev)
+
+
+def _resunit_params(c, dev, gen):
+    """(alpha1, w7, b7, alpha2, w1, b1) as K1 takes them."""
+    def u(*shape, bound):
+        return ((torch.rand(*shape, generator=gen, device=dev) * 2 - 1) * bound).bfloat16()
+
+    return (_alpha(c, dev, gen), u(7, c, c, bound=(7 * c) ** -0.5), _bias(c, dev, gen),
+            _alpha(c, dev, gen), u(1, c, c, bound=c ** -0.5), _bias(c, dev, gen))
+
+
+@pytest.mark.parametrize("b,t,c,dil", [(2, 37, 16, 1), (3, 130, 64, 9), (1, 5, 96, 3), (2, 333, 768, 3)])
+def test_resunit_kernel_matches_plain(dev, b, t, c, dil):
+    gen = torch.Generator(device=dev).manual_seed(t)
+    x = torch.randn(b, t, c, generator=gen, device=dev).bfloat16()
+    p = _resunit_params(c, dev, gen)
+    reset_launches()
+    out = ops.fused_residual_unit(x, *p, dil)
+    assert launches["resunit"] == 1
+    _check(out, ops.resunit_reference(x, *p, dilation=dil))
+
+
+@pytest.mark.parametrize("b,t,s,cin,cout", [(2, 21, 2, 32, 16), (1, 70, 4, 64, 32), (3, 9, 2, 16, 96)])
+def test_decoder_block_kernel_matches_plain(dev, b, t, s, cin, cout):
+    gen = torch.Generator(device=dev).manual_seed(t)
+    x = torch.randn(b, t, cin, generator=gen, device=dev).bfloat16()
+    a0 = _alpha(cin, dev, gen)
+    wt = (torch.rand(2 * s, cin, cout, generator=gen, device=dev) * 2 - 1) * (2 * s * cout) ** -0.5
+    w3 = phase_weights(wt.bfloat16(), s).contiguous()
+    bias3 = _bias(cout, dev, gen).repeat(s)
+    rus = [_resunit_params(cout, dev, gen) for _ in range(3)]
+    reset_launches()
+    out = ops.fused_decoder_block(x, a0, w3, bias3, rus, s)
+    assert launches == {"resunit": 3, "decoder_block": 1, "attention": 0}
+    _check(out, ops.decoder_block_reference(x, a0, w3, bias3, rus, stride=s))
+
+
+@pytest.mark.parametrize("b,tq,tk,h,d", [(2, 37, 37, 3, 24), (1, 130, 130, 2, 64), (2, 64, 200, 4, 8),
+                                         (1, 5, 70, 1, 48)])
+@pytest.mark.parametrize("masked", [False, True])
+def test_attention_kernel_matches_plain(dev, b, tq, tk, h, d, masked):
+    gen = torch.Generator(device=dev).manual_seed(tq + tk + d)
+    q = torch.randn(b, tq, h, d, generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn(b, tk, h, d, generator=gen, device=dev).bfloat16() for _ in range(2))
+    mask = None
+    if masked:  # ragged lengths, and the first 64-key tile fully masked in row 0
+        pos = torch.arange(tk, device=dev)[None, :]
+        mask = pos < torch.tensor([[tk - 3]] + [[tk]] * (b - 1), device=dev)
+        if tk > 65:
+            mask[0, :64] = False
+    reset_launches()
+    out = ops.flash_mha(q, k, v, mask=mask)
+    assert launches["attention"] == 1
+    _check(out, ops.mha_reference(q, k, v, mask=mask))
+
+
+def test_attention_kernel_row_without_valid_keys_takes_the_mean_of_v(dev):
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q, k, v = (torch.randn(2, 101, 8, 24, generator=gen, device=dev).bfloat16() for _ in range(3))
+    mask = torch.zeros(2, 101, dtype=torch.bool, device=dev)
+    mask[0, :90] = True  # batch row 1 has no valid key at all
+    out = ops.flash_mha(q, k, v, mask=mask)
+    _check(out, ops.mha_reference(q, k, v, mask=mask))
+    _check(out[1], v[1].float().mean(0, keepdim=True).expand(101, 8, 24))
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(dev):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(1, 8, 32, device=dev)
+    p = _resunit_params(32, dev, gen)
+    with pytest.raises(ValueError):  # f32 input
+        ops.fused_residual_unit(x, *p, 1)
+    with pytest.raises(ValueError):  # C % 16 != 0
+        ops.fused_residual_unit(torch.randn(1, 8, 24, device=dev).bfloat16(),
+                                *_resunit_params(24, dev, gen), 1)
+    with pytest.raises(ValueError):  # w7 not laid out as the kernel takes it
+        ops.fused_residual_unit(x.bfloat16(), p[0], p[1].float(), *p[2:], 1)
+    q = torch.randn(1, 8, 2, 80, device=dev).bfloat16()
+    with pytest.raises(ValueError):  # D > 64
+        ops.flash_mha(q, q, q)
