@@ -8,7 +8,7 @@ through. Wrappers that take the plain version (CPU tensors) do not count.
 
 from __future__ import annotations
 
-KERNELS = ("resunit", "decoder_block", "attention")
+KERNELS = ("resunit", "decoder_block", "attention", "int8_dense")
 
 launches: dict[str, int] = {name: 0 for name in KERNELS}
 

@@ -22,7 +22,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 
@@ -52,24 +52,44 @@ def _nvcc() -> str:
     return str(path)
 
 
+def _run(cmds: list[list[str]]) -> None:
+    """Start every command at once and wait for all; raise with the stderr
+    of the first that failed."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                    text=True)) for cmd in cmds]
+    failed = None
+    for cmd, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0 and failed is None:
+            failed = f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}"
+    if failed:
+        raise RuntimeError(failed)
+
+
 def build() -> Path:
     """Compile ``csrc/*.cu`` into one shared library; returns its path.
 
-    Raises RuntimeError with nvcc's stderr when the build fails.
+    Each source compiles in its own nvcc process, all started together, and
+    one more links the objects. Raises RuntimeError with nvcc's stderr when
+    the build fails.
     """
     out = BUILD_DIR / f"libedm_kernels_{_digest()}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
+    tmp = BUILD_DIR / f"{tag}.tmp.so"
+    nvcc = _nvcc()
+    try:
+        _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+              for src, obj in zip(_sources(), objs)])
+        _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
+        os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return out
 
 
@@ -81,7 +101,8 @@ def library() -> ctypes.CDLL:
     lib.edm_resunit.argtypes = [ptr] * 8 + [i32] * 4 + [ptr]
     lib.edm_tconv_phase.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
     lib.edm_attention.argtypes = [ptr] * 5 + [i32] * 5 + [ptr]
-    for fn in (lib.edm_resunit, lib.edm_tconv_phase, lib.edm_attention):
+    lib.edm_int8_dense.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
+    for fn in (lib.edm_resunit, lib.edm_tconv_phase, lib.edm_attention, lib.edm_int8_dense):
         fn.restype = ctypes.c_int
     return lib
 

@@ -8,9 +8,14 @@ names follow the reference DAC's ``decoder.model.*`` keys.
 
 On the card the residual units run as kernel K1 and the s=4 and s=2 tail
 blocks as kernel K2, as the JAX package selects its Pallas kernels (even
-stride dividing 40, C_out <= 192). The ``valid_frames`` masked decode of a
-padded canvas is not ported yet: the synthesis path decodes the whole
-canvas.
+stride dividing 40, C_out <= 192).
+
+``valid_frames`` decodes a padded canvas so that each row's valid samples
+equal the decode of its exact-size canvas: invalid rows are zeroed after
+the stem, after each transposed conv and after each residual unit, which
+reproduces the zero padding an exact canvas's convs see. K2 does not
+re-zero between its stages, so a block with a boundary runs unfused; the
+residual units stay K1 (they ignore the boundary, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -30,6 +35,22 @@ from edm_tts_tpu_torch.ops import fused_decoder_block
 from edm_tts_tpu_torch.ops.decoder_block import phase_weights
 
 _FUSED_HALO = 40  # the JAX kernel's halo; its strides must divide it
+
+
+def _zero_invalid(x: torch.Tensor, boundary: torch.Tensor | None) -> torch.Tensor:
+    """Zero time rows ``>= boundary[b]`` of ``(B, T, C)``."""
+    if boundary is None:
+        return x
+    keep = torch.arange(x.shape[1], device=x.device)[None, :] < boundary[:, None]
+    return torch.where(keep[..., None], x, 0)
+
+
+def _grow(boundary: torch.Tensor | None, stride: int) -> torch.Tensor | None:
+    """The boundary after a transposed conv: ``s*v``, +2 for an odd stride
+    (the kernel overhang an exact canvas keeps)."""
+    if boundary is None:
+        return None
+    return stride * boundary + (2 if stride % 2 else 0)
 
 
 class DecoderBlock(nn.Module):
@@ -65,17 +86,19 @@ class DecoderBlock(nn.Module):
                 bt.detach().float().repeat(self.stride).contiguous(),
             )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, boundary: torch.Tensor | None = None) -> torch.Tensor:
         snake0, tconv, *units = self.block
-        if self.fused:
+        if self.fused and boundary is None:
             if self.kernel_args is None:
                 raise RuntimeError("DecoderBlock: weights not packed; load them through "
                                    "edm_tts_tpu_torch.convert or call pack()")
             return fused_decoder_block(x.contiguous(), *self.kernel_args,
                                        [u.kernel_args for u in units], self.stride)
-        x = tconv(snake0(x))
+        boundary = _grow(boundary, self.stride)
+        x = _zero_invalid(tconv(snake0(x)), boundary)  # snake(0) == 0
         for u in units:
-            x = u(x)
+            # the k=7 conv bias leaks into the invalid rows: re-zero them
+            x = _zero_invalid(u(x), boundary)
         return x
 
 
@@ -98,9 +121,16 @@ class Decoder(nn.Module):
             if isinstance(layer, DecoderBlock):
                 layer.pack()
 
-    def forward(self, z: torch.Tensor) -> torch.Tensor:
-        """``(B, T50, latent_dim)`` -> ``(B, T_audio, d_out)``."""
-        x = z
-        for layer in self.model:
-            x = layer(x)
-        return torch.tanh(x)
+    def forward(self, z: torch.Tensor, valid_frames: torch.Tensor | None = None) -> torch.Tensor:
+        """``(B, T50, latent_dim)`` -> ``(B, T_audio, d_out)``.
+
+        ``valid_frames`` (optional int ``(B,)``): the masked decode of a
+        padded canvas; samples past ``valid_frames * hop`` are garbage.
+        """
+        stem, *blocks, snake, final = self.model
+        boundary = valid_frames
+        x = _zero_invalid(stem(_zero_invalid(z, boundary)), boundary)
+        for block in blocks:
+            x = block(x, boundary)
+            boundary = _grow(boundary, block.stride)
+        return torch.tanh(final(snake(x)))

@@ -33,9 +33,15 @@ class Codec(nn.Module):
             t = s * t + (2 if s % 2 else 0)
         return t
 
-    def decode_from_codes(self, codes: torch.Tensor) -> torch.Tensor:
-        """``(B, Q', T50)`` codes -> ``(B, decoded_length(T50), 1)`` waveform."""
-        return self.decoder(self.quantizer.from_codes(codes).to(self.dtype))
+    def decode_from_codes(self, codes: torch.Tensor,
+                          valid_frames: torch.Tensor | None = None) -> torch.Tensor:
+        """``(B, Q', T50)`` codes -> ``(B, decoded_length(T50), 1)`` waveform.
+
+        ``valid_frames`` (optional int ``(B,)``): decode a padded canvas so
+        that the first ``valid_frames[b] * hop`` samples of row b equal the
+        decode of ``codes[b, :, :valid_frames[b]]`` (``Decoder.forward``).
+        """
+        return self.decoder(self.quantizer.from_codes(codes).to(self.dtype), valid_frames)
 
     def codes_to_features(self, codes: torch.Tensor) -> torch.Tensor:
         """``(B, Q', T)`` -> summed quantized features ``(B, T, D)`` (f32)."""

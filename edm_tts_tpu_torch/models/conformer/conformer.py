@@ -15,7 +15,9 @@ defaults and are kept from the JAX package:
 - q and k/v are separate bias-free linears; ``heads * dim_head`` may differ
   from ``dim`` (the t2s model runs 8 x 24 = 192 inside a width of 384).
 
-Attention goes through ``ops.mha``: kernel K3 on the card.
+Attention goes through ``ops.mha``: kernel K3 on the card. The linears and
+the pointwise convs are the JAX package's ``QDense`` sites:
+``models/quantize.py`` swaps them for ``QLinear`` (kernel K5 on the card).
 """
 
 from __future__ import annotations
@@ -124,6 +126,14 @@ class _DepthWiseConv1d(nn.Module):
         return y.transpose(1, 2)
 
 
+class _Pointwise(nn.Conv1d):
+    """A k=1 conv (the reference's key and ``(out, in, 1)`` weight shape)
+    applied to channel-last input as a linear."""
+
+    def forward(self, x):
+        return F.linear(x, self.weight[:, :, 0], self.bias)
+
+
 class ConvModule(nn.Module):
     """LN -> pointwise (dim -> 2*inner) -> GLU -> depthwise -> Swish ->
     ChanLayerNorm -> pointwise (inner -> dim); ``net.{0,2,4,6,7}``."""
@@ -133,21 +143,21 @@ class ConvModule(nn.Module):
         inner = dim * expansion_factor
         self.net = nn.ModuleList([
             nn.LayerNorm(dim, eps=LN_EPS, **kw), nn.Identity(),
-            nn.Conv1d(dim, 2 * inner, 1, **kw), nn.Identity(),
+            _Pointwise(dim, 2 * inner, 1, **kw), nn.Identity(),
             _DepthWiseConv1d(inner, kernel_size, **kw), nn.Identity(),
-            ChanLayerNorm(inner, **kw), nn.Conv1d(inner, dim, 1, **kw),
+            ChanLayerNorm(inner, **kw), _Pointwise(inner, dim, 1, **kw),
         ])
 
     def forward(self, x, *, pad_mask=None):
         norm, _, pw_in, _, depthwise, _, chan_norm, pw_out = self.net
-        x = F.linear(norm(x), pw_in.weight[:, :, 0], pw_in.bias)
+        x = pw_in(norm(x))
         val, gate = x.chunk(2, dim=-1)
         x = val * torch.sigmoid(gate)
         if pad_mask is not None:
             x = torch.where(pad_mask[:, :, None], x, 0.0)
         x = depthwise(x)
         x = chan_norm(x * torch.sigmoid(x))
-        return F.linear(x, pw_out.weight[:, :, 0], pw_out.bias)
+        return pw_out(x)
 
 
 class ConformerBlock(nn.Module):

@@ -13,15 +13,22 @@ from edm_tts_tpu_torch.ops.masking import (
     random_topk_mask,
     sampling_mask_ratios,
 )
+from edm_tts_tpu_torch.ops.qdense import (
+    QLinear,
+    int8_dense,
+    int8_dense_reference,
+    quantizable_shape,
+    quantize_weight,
+)
 from edm_tts_tpu_torch.ops.resunit import fused_residual_unit, resunit_reference
 from edm_tts_tpu_torch.ops.rope import apply_rope, rope_frequencies, rotate_half
 from edm_tts_tpu_torch.ops.snake import cos_fast, snake
 
 __all__ = [
-    "apply_rope", "conv1d", "conv_transpose1d", "cos_fast",
+    "QLinear", "apply_rope", "conv1d", "conv_transpose1d", "cos_fast",
     "decoder_block_reference", "embed_take", "flash_mha", "fused_decoder_block",
-    "fused_residual_unit", "mha", "mha_reference", "positional_categorical",
-    "positional_gumbel", "random_topk_mask", "resunit_reference",
-    "rope_frequencies", "rotate_half", "sampling_mask_ratios", "snake",
-    "weight_norm",
+    "fused_residual_unit", "int8_dense", "int8_dense_reference", "mha", "mha_reference",
+    "positional_categorical", "positional_gumbel", "quantizable_shape", "quantize_weight",
+    "random_topk_mask", "resunit_reference", "rope_frequencies", "rotate_half",
+    "sampling_mask_ratios", "snake", "weight_norm",
 ]

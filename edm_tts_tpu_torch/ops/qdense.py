@@ -1,0 +1,135 @@
+"""Weight-only int8 dense: kernel K5 (csrc/qdense.cu), its plain version and
+the ``QLinear`` module.
+
+Port of edm_tts_tpu/ops/qdense.py (``quantize_weight``,
+``quantizable_shape``, ``int8_dense``, ``QDense``). Weights are kept in the
+JAX layout ``[in, out]``: ``kernel_q`` int8 ``(K, N)`` and a per-output-
+column f32 ``kernel_scale`` ``(N,)``.
+
+``int8_dense`` computes ``(x @ W_int8) * scale`` with f32 accumulation,
+cast to ``x.dtype``: kernel K5 for a CUDA tensor, ``int8_dense_reference``
+(the JAX package's ``implementation="xla"`` branch) for a CPU tensor.
+``implementation="w8a8"`` also quantizes the activations per row and runs
+an s8 x s8 -> s32 product; it is plain PyTorch in both packages
+(``torch._int_mm`` on the card, an int32 matmul on the CPU).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from edm_tts_tpu_torch.kernels import launches
+from edm_tts_tpu_torch.kernels.build import check_launch, library
+
+MODES = ("int8", "w8a8")
+
+
+def quantize_weight(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(K, N)`` float weights -> (int8 ``(K, N)``, f32 per-column scale
+    ``(N,)``). Symmetric, round half to even, clipped to +-127; a zero
+    column gets scale 1."""
+    w = w.float()
+    amax = w.abs().amax(dim=0)
+    scale = torch.where(amax > 0, amax / 127.0, 1.0)
+    q = torch.clamp(torch.round(w / scale[None, :]), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def quantizable_shape(in_features: int, features: int) -> bool:
+    """Whether ``(in, out)`` takes the int8 path (the JAX package's gate:
+    the TPU kernel's int8 tile is 32 rows by 128 lanes)."""
+    return in_features % 32 == 0 and features % 128 == 0
+
+
+def int8_dense_reference(x: torch.Tensor, kernel_q: torch.Tensor,
+                         kernel_scale: torch.Tensor) -> torch.Tensor:
+    """Plain version: the CPU path and K5's oracle, f32 accumulation."""
+    acc = x.float() @ kernel_q.float()
+    return (acc * kernel_scale).to(x.dtype)
+
+
+def _w8a8(x: torch.Tensor, kernel_q: torch.Tensor, kernel_scale: torch.Tensor) -> torch.Tensor:
+    """Per-row dynamic int8 activations x int8 weights, int32 accumulation."""
+    amax = x.abs().amax(dim=-1, keepdim=True)
+    xscale = torch.where(amax > 0, amax / 127.0, 1.0).float()
+    xq = torch.clamp(torch.round(x.float() / xscale), -127, 127).to(torch.int8)
+    if x.is_cuda:
+        acc = torch._int_mm(xq, kernel_q)
+    else:
+        acc = xq.int() @ kernel_q.int()
+    return (acc.float() * xscale * kernel_scale).to(x.dtype)
+
+
+def int8_dense(x: torch.Tensor, kernel_q: torch.Tensor, kernel_scale: torch.Tensor,
+               *, implementation: str = "int8") -> torch.Tensor:
+    """``x @ dequant(kernel_q)``: ``(..., K)`` -> ``(..., N)`` in ``x.dtype``.
+
+    ``implementation``: ``"int8"`` (K5 on CUDA: x bf16, ``K % 32 == 0`` and
+    ``N % 128 == 0``, else it raises) or ``"w8a8"``.
+    """
+    if implementation not in MODES:
+        raise ValueError(f"int8_dense: unknown implementation {implementation!r}")
+    k, n = kernel_q.shape
+    lead = x.shape[:-1]
+    xf = x.reshape(-1, k)
+    if implementation == "w8a8":
+        return _w8a8(xf, kernel_q, kernel_scale).reshape(*lead, n)
+    if not x.is_cuda:
+        return int8_dense_reference(xf, kernel_q, kernel_scale).reshape(*lead, n)
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"int8_dense: K5 takes bf16 activations, got {x.dtype}")
+    if not quantizable_shape(k, n):
+        raise ValueError(f"int8_dense: K5 needs K % 32 == 0 and N % 128 == 0, got K={k}, N={n}")
+    if kernel_q.dtype != torch.int8 or kernel_scale.dtype != torch.float32 \
+            or kernel_scale.shape != (n,):
+        raise ValueError("int8_dense: kernel_q must be int8 (K, N) and kernel_scale f32 (N,)")
+    xf = xf.contiguous()
+    for name, t in (("x", xf), ("kernel_q", kernel_q), ("kernel_scale", kernel_scale)):
+        if t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"int8_dense: {name} must be contiguous, 16-byte aligned, "
+                             f"on {x.device}")
+    m = xf.shape[0]
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    if m == 0:
+        return out.reshape(*lead, n)
+    err = library().edm_int8_dense(
+        xf.data_ptr(), kernel_q.data_ptr(), kernel_scale.data_ptr(), out.data_ptr(),
+        m, k, n, torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    check_launch(err, "int8_dense")
+    launches["int8_dense"] += 1
+    return out.reshape(*lead, n)
+
+
+class QLinear(nn.Module):
+    """A quantized ``nn.Linear``: ``int8_dense(x) + bias``.
+
+    The bias is added after the product in ``x.dtype``, as the JAX package's
+    ``QDense`` does (the product is rounded to ``x.dtype`` first).
+    """
+
+    def __init__(self, kernel_q: torch.Tensor, kernel_scale: torch.Tensor,
+                 bias: torch.Tensor | None = None, mode: str = "int8"):
+        super().__init__()
+        if mode not in MODES:
+            raise ValueError(f"QLinear: unknown mode {mode!r}")
+        self.mode = mode
+        self.register_buffer("kernel_q", kernel_q.to(torch.int8).contiguous())
+        self.register_buffer("kernel_scale", kernel_scale.float().contiguous())
+        self.register_buffer("bias", None if bias is None else bias.detach().clone())
+
+    @classmethod
+    def from_weight(cls, weight: torch.Tensor, bias: torch.Tensor | None,
+                    mode: str = "int8") -> "QLinear":
+        """From a torch ``(out, in)`` weight (``nn.Linear``'s layout)."""
+        q, scale = quantize_weight(weight.detach().t())
+        return cls(q, scale, bias, mode)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = int8_dense(x, self.kernel_q, self.kernel_scale, implementation=self.mode)
+        return y if self.bias is None else y + self.bias.to(y.dtype)
+
+    def extra_repr(self) -> str:
+        k, n = self.kernel_q.shape
+        return f"in_features={k}, out_features={n}, mode={self.mode}"

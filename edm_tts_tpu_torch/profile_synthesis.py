@@ -7,18 +7,22 @@ default codec and s2a, the t2s with hidden 384, 12 layers, heads 8 x
 dim_head 24), warms up with two requests, then answers one request of
 bench.py's shape (10 s of audio, a 150-frame prompt, 16 t2s iterations, 8
 s2a steps, full canvas) and each of its three stages under
-``torch.profiler``. Per part it prints the wall time of an untraced run,
-the device kernel time (the sum of the kernels' own device time), the
-busy share (device time over that wall time) and the kernels by device
-time. With ``--out`` each table also goes to ``DIR/profile_<part>.txt``.
+``torch.profiler``. Last it quantizes the models to int8 and profiles one
+served batch: three texts of 20-98 bytes through ``TTSEngine.synthesize``
+(bucket 4, ~10 s of audio each). Per part it prints the wall time of an
+untraced run, the device kernel time (the sum of the kernels' own device
+time), the busy share (device time over that wall time) and the kernels by
+device time. With ``--out`` each table also goes to
+``DIR/profile_<part>.txt``.
 
-``full_width_models`` and ``bench_inputs`` are the models and the request
-that chip_smoke.py drives too.
+``full_width_models``, ``bench_inputs``, ``served_engine`` and
+``SERVED_TEXTS`` are the models and requests that chip_smoke.py drives too.
 """
 
 from __future__ import annotations
 
 import argparse
+import math
 import time
 from pathlib import Path
 
@@ -29,6 +33,7 @@ from edm_tts_tpu_torch.models.codec import CodecConfig
 from edm_tts_tpu_torch.models.s2a import InjectionConformer, S2AConfig, s2a_sample
 from edm_tts_tpu_torch.models.t2s import T2SConfig, TextToSemantic, t2s_sample
 from edm_tts_tpu_torch.pipeline import e2e_synthesize
+from edm_tts_tpu_torch.serving import TTSEngine
 
 GEN_FRAMES = 500      # 10 s at 50 Hz
 PROMPT_FRAMES = 150   # 3 s speaker prompt
@@ -37,6 +42,15 @@ PRED_ITERS = 16
 STEPS = 8
 TEXT = ("The quick brown fox jumps over the lazy dog while a zero-shot voice "
         "reads this sentence aloud for the smoke run.")
+# served requests of 20, 61, 98 and 120 bytes
+SERVED_TEXTS = (
+    "Hello there, friend.",
+    "The weather today is mild, with a light breeze from the west.",
+    "Please remember to bring the signed forms, your identity card and a pen "
+    "when you come in tomorrow.",
+    "A zero-shot voice reads this longer sentence aloud, so that the served path "
+    "carries one request of a hundred and twenty.",
+)
 
 
 def full_width_models(device, seed: int) -> tuple[TextToSemantic, InjectionConformer]:
@@ -62,6 +76,27 @@ def bench_inputs(s2a_cfg: S2AConfig, device, seed: int) -> dict[str, torch.Tenso
     return dict(text=text, text_len=torch.tensor([text.shape[1]], device=device),
                 prompt_ac=prompt_ac.to(device), prompt_sem=prompt_sem.to(device),
                 gt_length=torch.tensor([GEN_FRAMES], device=device))
+
+
+@torch.no_grad()
+def served_engine(t2s: TextToSemantic, s2a: InjectionConformer, device, seed: int) -> TTSEngine:
+    """An int8 engine over the models (quantized in place) with a random
+    150-frame speaker prompt registered as "spk".
+
+    Random weights predict lengths of a frame or two; the length head is
+    set to predict ~480 frames (~10 s), the length of a long sentence.
+    """
+    t2s.length_pred_head.weight.mul_(0.02)
+    t2s.length_pred_head.bias.fill_(math.log(480.0))
+    engine = TTSEngine.from_models(t2s, s2a, device=device, quantize="int8",
+                                   pred_iters=PRED_ITERS, s2a_steps=STEPS, max_speech_len=1250)
+    cfg = s2a.cfg
+    gen = torch.Generator().manual_seed(seed)
+    engine.register_speaker_codes(
+        "spk", torch.randint(0, cfg.num_codevectors, (1, cfg.num_quantizers, PROMPT_FRAMES),
+                             generator=gen),
+        torch.randint(0, cfg.num_semantic_tokens, (1, PROMPT_FRAMES), generator=gen))
+    return engine
 
 
 def _profile(name: str, fn, out: Path | None) -> None:
@@ -123,6 +158,10 @@ def main() -> None:
     _profile("s2a", lambda: s2a_sample(s2a, t2s_out["semantic_tokens"], inp["prompt_ac"],
                                        inp["prompt_sem"], gen, steps=STEPS), args.out)
     _profile("decode", lambda: s2a.decode_audio(codes), args.out)
+    engine = served_engine(t2s, s2a, dev, args.seed)
+    engine.synthesize(list(SERVED_TEXTS[:3]), "spk", seed=1)  # warm-up at these shapes
+    _profile("served_int8_batch", lambda: engine.synthesize(list(SERVED_TEXTS[:3]), "spk", seed=7),
+             args.out)
 
 
 if __name__ == "__main__":

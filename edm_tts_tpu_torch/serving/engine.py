@@ -1,0 +1,195 @@
+"""TTS engine: the staged zero-shot pipeline behind a bucketed serving
+surface (port of edm_tts_tpu/serving/engine.py).
+
+Text length, speech-canvas length and batch size are rounded up to a few
+buckets and the padding is masked (``semantic_valid`` in the s2a sampler,
+``valid_frames`` in the codec decode, batch rows repeated from row 0), so
+requests of nearby sizes run the same shapes and a padded request gives the
+waveform of its exact-size run. On the card the Conformer attention runs as
+kernel K3, the decoder's residual units as K1, and with ``quantize="int8"``
+every quantized linear as K5.
+
+Speaker prompts are registered once as codes (``register_speaker_codes``)
+and reused by every request. Tokenizing a prompt from a wav (HuBERT, the
+codec encoder, k-means) and loading model directories are not ported yet:
+the engine is built from in-memory models with ``from_models``.
+
+Randomness: one CPU ``torch.Generator`` seeded with the request's seed
+drives both samplers. It cannot reproduce the JAX package's
+``jax.random`` streams, so the two engines agree only at temperature 0 with
+greedy sampling (tests/test_torch_serving.py).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from edm_tts_tpu_torch.models import quantize as quantization
+from edm_tts_tpu_torch.models.s2a import InjectionConformer, s2a_sample
+from edm_tts_tpu_torch.models.t2s import TextToSemantic, t2s_sample
+from edm_tts_tpu_torch.serving.chunking import default_chunk_chars, join_waveforms, split_text
+from edm_tts_tpu_torch.utils.bucketing import bucket_batch, bucket_length
+
+
+@dataclasses.dataclass(frozen=True)
+class SpeakerPrompt:
+    acoustic_codes: torch.Tensor  # (1, Q, Tp)
+    semantic_codes: torch.Tensor  # (1, Tp)
+
+
+class TTSEngine:
+    def __init__(
+        self,
+        t2s: TextToSemantic,
+        s2a: InjectionConformer,
+        *,
+        device: str | torch.device = "cuda",
+        quantize: str = "none",
+        quantize_t2s: str | None = None,
+        quantize_s2a: str | None = None,
+        pred_iters: int = 16,
+        s2a_steps: int = 8,
+        temperature: float = 1.0,
+        max_speech_len: int = 1250,
+        text_bucket: int = 32,
+        length_bucket: int = 64,
+        batch_buckets: tuple[int, ...] = (1, 2, 4, 8, 16),
+    ):
+        """See ``from_models``."""
+        self.device = torch.device(device)
+        self.t2s = quantization.quantize_t2s(t2s.to(self.device).eval(),
+                                             quantize_t2s or quantize)
+        self.s2a = quantization.quantize_s2a(s2a.to(self.device).eval(),
+                                             quantize_s2a or quantize)
+        # the decoder's kernel layouts are plain tensors that .to() leaves behind
+        self.s2a.acoustic_model.decoder.pack()
+        self.pred_iters = pred_iters
+        self.s2a_steps = s2a_steps
+        self.temperature = temperature
+        self.max_speech_len = max_speech_len
+        self.text_bucket = text_bucket
+        self.length_bucket = length_bucket
+        self.batch_buckets = tuple(sorted(batch_buckets))
+        self._speakers: dict[str, SpeakerPrompt] = {}
+
+    @classmethod
+    def from_models(cls, t2s: TextToSemantic, s2a: InjectionConformer, **opts) -> "TTSEngine":
+        """An engine over in-memory models, moved to ``device`` (default the
+        card; the CPU only when asked) and quantized in place.
+
+        ``quantize`` ("none", "int8" or "w8a8") applies to both models;
+        ``quantize_t2s``/``quantize_s2a`` override it per model, as the JAX
+        package's loaders take it. The other options are the JAX engine's:
+        ``pred_iters``, ``s2a_steps``, ``temperature``, ``max_speech_len``,
+        ``text_bucket``, ``length_bucket`` and ``batch_buckets``.
+        """
+        return cls(t2s, s2a, **opts)
+
+    # -- speakers -------------------------------------------------------
+    @property
+    def sample_rate(self) -> int:
+        return self.s2a.cfg.codec.sample_rate
+
+    @property
+    def hop_length(self) -> int:
+        """Waveform samples per frame."""
+        return self.s2a.cfg.codec.hop_length
+
+    def register_speaker(self, name: str, wav: np.ndarray, sr: int) -> None:
+        raise NotImplementedError(
+            "registering a speaker from a wav needs prompt tokenization (HuBERT, the codec "
+            "encoder, k-means), which the PyTorch port does not have yet; register the "
+            "prompt's codes with register_speaker_codes")
+
+    def register_speaker_codes(self, name: str, acoustic_codes, semantic_codes) -> None:
+        """Register precomputed prompt codes (``(1, Q, Tp)`` acoustic,
+        ``(1, Tp)`` semantic)."""
+        def codes(x):
+            x = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))
+            return x.to(self.device, torch.long)
+
+        self._speakers[name] = SpeakerPrompt(codes(acoustic_codes), codes(semantic_codes))
+
+    def speakers(self) -> tuple[str, ...]:
+        return tuple(self._speakers)
+
+    # -- synthesis ------------------------------------------------------
+    @torch.no_grad()
+    def synthesize(
+        self,
+        texts: list[str],
+        speaker: str,
+        *,
+        seed: int = 0,
+        gt_lengths: list[int] | None = None,
+    ) -> list[np.ndarray]:
+        """Synthesize a batch of texts with one registered speaker.
+
+        Returns one float32 waveform ``(n_samples,)`` per text, trimmed to
+        its own length. The batch is padded up to the next batch bucket by
+        repeating row 0; padded rows are computed and discarded (rows are
+        independent through every stage)."""
+        prompt = self._speakers[speaker]
+        b_real = len(texts)
+        if b_real < 1:
+            raise ValueError("synthesize: no texts")
+        b = bucket_batch(b_real, self.batch_buckets)
+        dev = self.device
+
+        byte_seqs = [[c + 5 for c in t.encode("utf-8")] for t in texts]
+        byte_seqs += [byte_seqs[0]] * (b - b_real)
+        lt = bucket_length(max(len(s) for s in byte_seqs), self.text_bucket)
+        text_tokens = torch.tensor([s + [0] * (lt - len(s)) for s in byte_seqs], device=dev)
+        text_lengths = torch.tensor([len(s) for s in byte_seqs], device=dev)
+        gt = None
+        if gt_lengths is not None:
+            gt = torch.tensor(list(gt_lengths) + [gt_lengths[0]] * (b - b_real), device=dev)
+
+        generator = torch.Generator().manual_seed(seed)
+        t2s_out = t2s_sample(
+            self.t2s, text_tokens, text_lengths, generator, pred_iters=self.pred_iters,
+            temperature=self.temperature, max_speech_len=self.max_speech_len, gt_length=gt,
+        )
+        lengths = t2s_out["lengths"]
+        n_max = bucket_length(int(lengths.max()), self.length_bucket, self.max_speech_len)
+        semantic_valid = torch.arange(n_max, device=dev)[None, :] < lengths[:, None]
+        pa, ps = prompt.acoustic_codes, prompt.semantic_codes
+        codes = s2a_sample(
+            self.s2a, t2s_out["semantic_tokens"][:, :n_max],
+            pa.expand(b, *pa.shape[1:]), ps.expand(b, *ps.shape[1:]), generator,
+            steps=self.s2a_steps, temperature=self.temperature, semantic_valid=semantic_valid,
+        )
+        audio = self.s2a.acoustic_model.decode_from_codes(codes, lengths)
+        audio = audio[..., 0].float().cpu().numpy()
+        lengths = lengths.cpu().numpy()
+        return [audio[i, : int(lengths[i]) * self.hop_length] for i in range(b_real)]
+
+    def synthesize_long(
+        self,
+        text: str,
+        speaker: str,
+        *,
+        seed: int = 0,
+        max_chunk_chars: int | None = None,
+        crossfade_ms: float = 30.0,
+        gap_ms: float = 0.0,
+    ) -> np.ndarray:
+        """Synthesize arbitrarily long text as one waveform.
+
+        Splits the text at sentence boundaries into chunks the canvas can
+        hold (serving/chunking.py), synthesizes them as batched calls and
+        joins the chunk waveforms with a short crossfade (or a silence gap).
+        Runs on the calling thread; a server routes the chunks of a
+        ``"long": true`` request through its batcher instead."""
+        if max_chunk_chars is None:
+            max_chunk_chars = default_chunk_chars(self.max_speech_len)
+        chunks = split_text(text, max_chunk_chars)
+        cap = max(self.batch_buckets)
+        wavs: list[np.ndarray] = []
+        for i in range(0, len(chunks), cap):
+            wavs += self.synthesize(chunks[i : i + cap], speaker, seed=seed)
+        return join_waveforms(wavs, self.sample_rate, crossfade_ms=crossfade_ms, gap_ms=gap_ms)
+

@@ -36,6 +36,26 @@ def test_decode_from_codes_matches_jax(codecs):
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), **TOL)
 
 
+def test_masked_decode_matches_jax_and_exact_size_decodes(codecs):
+    """``valid_frames``: the padded-canvas decode equals JAX's masked decode,
+    and each row's valid samples equal the decode of its exact-size canvas
+    (the property tests/test_bucketed_inference.py pins for JAX)."""
+    jmodel, variables, model = codecs
+    codes = np.random.default_rng(1).integers(0, 16, (3, 4, 12))
+    valid = np.array([7, 12, 3])
+    ref = jmodel.apply(variables, jnp.asarray(codes), jnp.asarray(valid),
+                       method=JCodec.decode_from_codes)
+    with torch.no_grad():
+        out = model.decode_from_codes(torch.from_numpy(codes), torch.from_numpy(valid)).numpy()
+        hop = model.config.hop_length
+        for i, v in enumerate(valid):
+            exact = model.decode_from_codes(torch.from_numpy(codes[i:i + 1, :, :v])).numpy()
+            np.testing.assert_allclose(out[i, : v * hop], exact[0, : v * hop], atol=1e-6, rtol=1e-6)
+    n = model.decoded_length(12)
+    assert out.shape == ref.shape == (3, n, 1)
+    np.testing.assert_allclose(out, np.asarray(ref), **TOL)
+
+
 @pytest.mark.parametrize("levels", [1, 3])
 def test_codes_to_features_match_jax(codecs, levels):
     jmodel, variables, model = codecs

@@ -3,7 +3,8 @@
 Marked ``gpu``; every test skips where there is no CUDA device. These cover
 edge shapes that chip_smoke.py's slice shapes do not: batch > 1, lengths
 that are not a multiple of the tiles, narrow channels, other head dims,
-fully masked leading key tiles, a batch row with no valid key. On the GPU
+fully masked leading key tiles, a batch row with no valid key, int8 products
+with a ragged last row tile and leading batch dimensions. On the GPU
 machine (no jax there, so the suite's conftest cannot load):
 
     python3 -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
@@ -63,7 +64,11 @@ def _resunit_params(c, dev, gen):
             _alpha(c, dev, gen), u(1, c, c, bound=c ** -0.5), _bias(c, dev, gen))
 
 
-@pytest.mark.parametrize("b,t,c,dil", [(2, 37, 16, 1), (3, 130, 64, 9), (1, 5, 96, 3), (2, 333, 768, 3)])
+@pytest.mark.parametrize("b,t,c,dil", [
+    (2, 37, 16, 1), (3, 130, 64, 9), (1, 5, 96, 3), (2, 333, 768, 3),
+    # the tail blocks' units on the masked decode of a 500-frame canvas
+    *((1, 80008, 192, d) for d in (1, 3, 9)), *((1, 160016, 96, d) for d in (1, 3, 9)),
+])
 def test_resunit_kernel_matches_plain(dev, b, t, c, dil):
     gen = torch.Generator(device=dev).manual_seed(t)
     x = torch.randn(b, t, c, generator=gen, device=dev).bfloat16()
@@ -85,7 +90,7 @@ def test_decoder_block_kernel_matches_plain(dev, b, t, s, cin, cout):
     rus = [_resunit_params(cout, dev, gen) for _ in range(3)]
     reset_launches()
     out = ops.fused_decoder_block(x, a0, w3, bias3, rus, s)
-    assert launches == {"resunit": 3, "decoder_block": 1, "attention": 0}
+    assert launches == {"resunit": 3, "decoder_block": 1, "attention": 0, "int8_dense": 0}
     _check(out, ops.decoder_block_reference(x, a0, w3, bias3, rus, stride=s))
 
 
@@ -118,6 +123,45 @@ def test_attention_kernel_row_without_valid_keys_takes_the_mean_of_v(dev):
     _check(out[1], v[1].float().mean(0, keepdim=True).expand(101, 8, 24))
 
 
+@pytest.mark.parametrize("lead,k,n", [
+    ((1,), 32, 128), ((129,), 384, 384), ((662,), 1024, 4096), ((1382,), 192, 384),
+    ((2648,), 1024, 4096), ((65,), 4096, 1024), ((2, 77), 384, 1536), ((3, 662), 1024, 8192),
+])
+def test_int8_dense_kernel_matches_plain(dev, lead, k, n):
+    gen = torch.Generator(device=dev).manual_seed(k + n)
+    x = torch.randn(*lead, k, generator=gen, device=dev).bfloat16()
+    w = torch.randn(k, n, generator=gen, device=dev) * (0.5 + 1.5 * torch.rand(n, generator=gen, device=dev))
+    q, scale = ops.quantize_weight(w)
+    reset_launches()
+    out = ops.int8_dense(x, q, scale)
+    assert launches["int8_dense"] == 1 and out.shape == (*lead, n) and out.dtype == torch.bfloat16
+    _check(out, ops.int8_dense_reference(x, q, scale))
+
+
+def test_w8a8_on_the_card_matches_the_cpu(dev):
+    """w8a8 is plain PyTorch (``torch._int_mm`` on the card, an int32 matmul
+    on the CPU): the integer products are exact, so both sides agree."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn(129, 384, generator=gen, device=dev).bfloat16()
+    q, scale = ops.quantize_weight(torch.randn(384, 1536, generator=gen, device=dev))
+    reset_launches()
+    out = ops.int8_dense(x, q, scale, implementation="w8a8")
+    assert launches["int8_dense"] == 0
+    _check(out, ops.int8_dense(x.cpu(), q.cpu(), scale.cpu(), implementation="w8a8").to(dev))
+
+
+def test_qlinear_runs_k5_and_adds_the_bias_after(dev):
+    gen = torch.Generator(device=dev).manual_seed(1)
+    w = torch.randn(256, 64, generator=gen, device=dev)  # nn.Linear layout (out, in)
+    bias = _bias(256, dev, gen).bfloat16()
+    x = torch.randn(3, 10, 64, generator=gen, device=dev).bfloat16()
+    layer = ops.QLinear.from_weight(w, bias)
+    reset_launches()
+    out = layer(x)
+    assert launches["int8_dense"] == 1
+    _check(out, ops.int8_dense_reference(x, layer.kernel_q, layer.kernel_scale) + bias)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     gen = torch.Generator(device=dev).manual_seed(0)
     x = torch.randn(1, 8, 32, device=dev)
@@ -132,3 +176,11 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     q = torch.randn(1, 8, 2, 80, device=dev).bfloat16()
     with pytest.raises(ValueError):  # D > 64
         ops.flash_mha(q, q, q)
+    wq, scale = ops.quantize_weight(torch.randn(64, 256, device=dev))
+    xb = torch.randn(5, 64, device=dev).bfloat16()
+    with pytest.raises(ValueError):  # f32 activations
+        ops.int8_dense(xb.float(), wq, scale)
+    with pytest.raises(ValueError):  # N % 128 != 0
+        ops.int8_dense(xb, wq[:, :192].contiguous(), scale[:192].contiguous())
+    with pytest.raises(ValueError):  # a row start that is not 16-byte aligned
+        ops.int8_dense(torch.randn(5 * 64 + 1, device=dev).bfloat16()[1:].view(5, 64), wq, scale)

@@ -138,4 +138,7 @@ def test_cpu_wrappers_take_the_plain_path_and_count_nothing():
                                ops.decoder_block_reference(*args, stride=2), rtol=0, atol=0)
     q = x.reshape(1, 20, 2, 8)
     torch.testing.assert_close(ops.mha(q, q, q), ops.mha_reference(q, q, q), rtol=0, atol=0)
-    assert launches == {"resunit": 0, "decoder_block": 0, "attention": 0}
+    wq, scale = ops.quantize_weight(torch.from_numpy(rng.standard_normal((16, 128)).astype(np.float32)))
+    torch.testing.assert_close(ops.int8_dense(x, wq, scale), ops.int8_dense_reference(x, wq, scale),
+                               rtol=0, atol=0)
+    assert launches == {"resunit": 0, "decoder_block": 0, "attention": 0, "int8_dense": 0}

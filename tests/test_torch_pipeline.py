@@ -7,8 +7,10 @@ Tiny models with the same weights, f32 on the CPU. Tokens and lengths:
 exact. Audio: atol/rtol 1e-4.
 """
 
+import ast
 import subprocess
 import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -66,7 +68,17 @@ def test_port_imports_no_jax():
     code = (
         "import sys, edm_tts_tpu_torch, edm_tts_tpu_torch.pipeline, edm_tts_tpu_torch.convert\n"
         "import edm_tts_tpu_torch.kernels.build, edm_tts_tpu_torch.profile_synthesis\n"
+        "import edm_tts_tpu_torch.serving, edm_tts_tpu_torch.models.quantize\n"
+        "import edm_tts_tpu_torch.ops.qdense, edm_tts_tpu_torch.utils.bucketing, chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'edm_tts_tpu'))\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+    # and no import statement anywhere, lazy ones inside functions included
+    root = Path(__file__).resolve().parent.parent
+    for path in [root / "chip_smoke.py", *sorted((root / "edm_tts_tpu_torch").rglob("*.py"))]:
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                     else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
+            bad = [n for n in names if n.split(".")[0] in ("jax", "flax", "edm_tts_tpu")]
+            assert not bad, (path, bad)

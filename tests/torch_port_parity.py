@@ -41,6 +41,14 @@ TINY_T2S = dict(hidden_size=32, semantic_vocab_size=8, main_encoder_num_heads=2,
                 main_encoder_dim_head=12, main_encoder_num_layers=2,
                 length_predictor_num_heads=2, length_predictor_dim_head=12,
                 length_predictor_num_layers=1)
+# widths that put the int8 sites (QDense / QLinear) on both sides of the
+# shape gate K % 32 == 0 and N % 128 == 0: at hidden 128 every s2a site and
+# the t2s feed-forwards, to_out (96 -> 128), the pointwise convs and the
+# pred_transform dense pass; the t2s to_q (128 -> 96), to_kv (128 -> 192)
+# and pred_head (128 -> 8) stay float
+QUANT_S2A = {**TINY_S2A, "hidden_size": 128, "encoder_num_heads": 4}
+QUANT_T2S = {**TINY_T2S, "hidden_size": 128, "main_encoder_dim_head": 48,
+             "length_predictor_dim_head": 48}
 
 
 def as_torch(x) -> torch.Tensor:
@@ -90,23 +98,23 @@ def codec_pair(seed: int = 0):
     return jmodel, variables, model
 
 
-def t2s_pair(seed: int = 0):
+def t2s_pair(seed: int = 0, cfg: dict = TINY_T2S):
     """(JAX t2s, its variables, port t2s) with the same weights."""
-    jcfg = JT2SConfig(**TINY_T2S)
+    jcfg = JT2SConfig(**cfg)
     jmodel = JTextToSemantic(jcfg)
     variables = random_variables(lambda r: jmodel.init(
         r, jnp.zeros((1, 16), jnp.int32), jnp.ones((1, 16), bool), jnp.zeros((1, 16), bool),
         jnp.zeros((1, 4), jnp.int32), jnp.ones((1, 4), bool), jnp.ones((1,)),
         mask_rng=r, train=False,
     ), seed)
-    model = TextToSemantic(T2SConfig(**TINY_T2S))
+    model = TextToSemantic(T2SConfig(**cfg))
     load_reference_state_dict(model, t2s_to_torch(jcfg, variables))
     return jmodel, variables, model
 
 
-def s2a_pair(seed: int = 0):
+def s2a_pair(seed: int = 0, cfg: dict = TINY_S2A):
     """(JAX s2a with a full codec grafted in, its variables, port s2a)."""
-    jcfg = JS2AConfig(**TINY_S2A, codec=JCodecConfig(**TINY_CODEC))
+    jcfg = JS2AConfig(**cfg, codec=JCodecConfig(**TINY_CODEC))
     jmodel = JInjectionConformer(jcfg)
     variables = random_variables(lambda r: jmodel.init(
         r, jnp.zeros((1, 4, 8), jnp.int32), jnp.zeros((1, 8), jnp.int32),
@@ -114,8 +122,8 @@ def s2a_pair(seed: int = 0):
     ), seed)
     _, codec_vars, _ = codec_pair(seed + 1)
     variables = {"params": {**variables["params"], "codec": codec_vars["params"]}}
-    cfg = S2AConfig(**TINY_S2A, codec=CodecConfig(**TINY_CODEC))
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
-    model = InjectionConformer(cfg)
+    port_cfg = S2AConfig(**cfg, codec=CodecConfig(**TINY_CODEC))
+    assert dataclasses.asdict(port_cfg) == dataclasses.asdict(jcfg)
+    model = InjectionConformer(port_cfg)
     load_reference_state_dict(model, s2a_to_torch(jcfg, variables))
     return jmodel, variables, model
