@@ -7,13 +7,17 @@ Phases, each reported on its own line:
   1. environment: torch / CUDA versions and the card's name and power limit;
   2. build: nvcc builds the kernels from edm_tts_tpu_torch/csrc;
   3. kernels: each hand-written kernel (K1 residual unit, K2 decoder block,
-     K3 attention, K5 int8 dense) against its plain PyTorch version at the
-     shapes of the synthesis and serving paths in bf16: relative l2 and max
-     abs error within their limits, planted faults of the plain version
-     outside them, median times of the kernel, the plain version and, where
-     one PyTorch call computes the same function, that call; the least time
-     the card could take (bytes over 3.35 TB/s or operations over 989
-     TFLOP/s, the H100 SXM's published peaks);
+     K3 attention, K3 with its LSE output and K4 attention backward, K5 int8
+     dense) against its plain PyTorch version at the shapes of the
+     synthesis, serving and training paths in bf16: relative l2 and max abs
+     error within their limits (K3's LSE also within an absolute limit),
+     planted faults of the plain version outside
+     them, median times of the kernel, the plain version and, where one
+     PyTorch call computes the same function, that call (for K4 the
+     backward of scaled_dot_product_attention: forward and backward timed,
+     the forward subtracted); the least time the card could take (bytes
+     over 3.35 TB/s or operations over 989 TFLOP/s, the H100 SXM's
+     published peaks);
   4. end to end: full-width models (the default codec and s2a, the t2s of
      bench.py; edm_tts_tpu_torch/profile_synthesis.py builds them) from a
      seeded random init in bf16 answer (a) a 10 s request with a given
@@ -29,16 +33,38 @@ Phases, each reported on its own line:
      kernels' launch counts (K5 on every quantized linear, K3, K1, and no
      K2 on the masked decode), the int8 s2a's logits against the bf16 ones
      and the masked decode against exact-size decodes; prints each
-     request's latency and the engine's wall per second of audio.
+     request's latency and the engine's wall per second of audio;
+  6. training (d): the s2a recipe of configs/injection_conformer/
+     train_config.yaml (d1024, 16 layers, B32 x 768 frames in 4
+     micro-batches, bf16 autocast, f32 weights and AdamW state) through
+     train.run_s2a.main_from_dict on seeded token shards and a seeded random
+     init, 6 optimizer steps with a 2-step warmup; first one micro-batch's
+     loss and gradient through K3+K4 against the same step on the same
+     model with the Conformer's attention replaced by the plain version for
+     that one call (and a planted K4 fault outside the limit); checks
+     finite losses and gradient norms, the frozen codec unchanged, every
+     trainable tensor moved and 16 K3 and 16 K4 launches per micro-batch;
+     prints seconds per step, frames per second, peak device memory and
+     the final checkpoint's size and save time.
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
 There is no CPU fallback: without a CUDA device the script fails.
+
+    python3 chip_smoke.py --source-faults
+
+plants each of SOURCE_FAULTS in a copy of K3's or K4's CUDA source (the
+package and this script copied into a temporary directory, built there)
+and runs the K3-with-LSE/K4 cases of phase 3 on it (``--attention-kernels``,
+which exits 3 when a case is outside its limits); the sources as they are
+must pass first, and it exits 1 if any fault passes.
 """
 
 from __future__ import annotations
 
 import io
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -58,6 +84,11 @@ REL_L2_TOL = 2.0 ** -6
 # magnitude (4-8 bf16 ulps there): catches a few rows gone wrong, which
 # barely move a relative l2 error over millions of elements
 MAX_ABS_TOL = 2.0 ** -5
+# K3's f32 LSE against its plain version, absolute (measured 9.5e-7 on an
+# H100): an LSE off by e scales every probability K4 rebuilds by exp(-e),
+# so the relative limits above, at LSE values ~7, would pass a 10 % error
+# in every gradient
+LSE_ABS_TOL = 1e-4
 # the H100 SXM's published peaks (dense bf16 tensor cores, HBM3)
 PEAK_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
@@ -68,6 +99,16 @@ INT8_LOGITS_REL_L2_TOL = 0.05
 # a decode against another decode of the same codes: bf16 through 17 conv
 # stages rounded at other points
 DECODE_REL_L2_TOL = 0.05
+# one s2a micro-batch (B8 x 768, bf16 autocast) through K3+K4 against the
+# same step through the plain attention: the flattened trainable gradient's
+# relative l2 (measured 0.0039 on an H100; dk scaled by sqrt(D) in K4 gives
+# 0.25) and the loss's relative difference (measured 2.3e-6)
+TRAIN_GRAD_REL_L2_TOL = 0.02
+TRAIN_LOSS_REL_TOL = 1e-3
+# the s2a training recipe (configs/injection_conformer/train_config.yaml)
+# cut to 6 steps with a 2-step warmup, on 48 seeded items of 800-1000 frames
+TRAIN_STEPS = 6
+TRAIN_ITEMS = 48
 
 KERNELS = {
     "resunit": dict(source="edm_tts_tpu_torch/csrc/resunit.cu",
@@ -76,13 +117,44 @@ KERNELS = {
                           replaces="edm_tts_tpu/ops/pallas_decoder_block.py:287"),
     "attention": dict(source="edm_tts_tpu_torch/csrc/attention.cu",
                       replaces="edm_tts_tpu/ops/pallas_attention.py:83"),
+    "attention_bwd": dict(source="edm_tts_tpu_torch/csrc/attention_bwd.cu",
+                          replaces="edm_tts_tpu/ops/pallas_attention.py:234"),
     "int8_dense": dict(source="edm_tts_tpu_torch/csrc/qdense.cu",
                        replaces="edm_tts_tpu/ops/qdense.py:102"),
 }
+# K3 with its LSE and K4: the s2a training micro-batch, a masked ragged batch
+# and the masked t2s canvas (label: B, T, H, D, key lengths or None)
+ATTENTION_TRAIN_CASES = (
+    ("s2a train B8 T768 H16 D64", (8, 768, 16, 64, None)),
+    ("ragged B4 T701 H8 D24 mask", (4, 701, 8, 24, (701, 650, 512, 97))),
+    ("t2s canvas B4 T1382 H8 D24 mask", (4, 1382, 8, 24, (1382, 1210, 905, 488))),
+)
+# --source-faults: faults planted in copies of K3's and K4's CUDA sources,
+# each of which the K3-with-LSE/K4 cases must reject. name: (source in
+# edm_tts_tpu_torch/csrc, [(text, replacement), ...]); every occurrence is
+# replaced
+SOURCE_FAULTS = {
+    "delta dropped": ("attention_bwd.cu", [
+        ("(dpw[e] - delta_s[c])", "(dpw[e])"),
+        ("(dpw[e] - delta_s[warp * 16 + r])", "(dpw[e])")]),
+    "dk without the scale": ("attention_bwd.cu", [
+        ("dsw[e] = __float2bfloat16(p * (dpw[e] - delta_s[c]) * sc);",
+         "dsw[e] = __float2bfloat16(p * (dpw[e] - delta_s[c]));")]),
+    "mask ignored in the backward": ("attention_bwd.cu", [
+        ("valid[j] = t < Tk && (mask == nullptr || uniform || mask[(size_t)b * Tk + t] != 0);",
+         "valid[j] = t < Tk;")]),
+    "last query tile skipped": ("attention_bwd.cu", [
+        ("for (int q0 = 0; q0 < Tq; q0 += kBT)", "for (int q0 = 0; q0 + kBT < Tq; q0 += kBT)")]),
+    "LSE without log(l)": ("attention.cu", [("mw[lane] + logf(lw[lane])", "mw[lane]")]),
+}
+
+
+class CheckFailed(SystemExit):
+    """A result outside its limit: exit code 1 (3 under ``--attention-kernels``)."""
 
 
 def fail(msg: str) -> None:
-    raise SystemExit(f"chip_smoke: FAIL: {msg}")
+    raise CheckFailed(f"chip_smoke: FAIL: {msg}")
 
 
 def median_ms(torch, fn, n: int = 20) -> float:
@@ -114,8 +186,9 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
-def kernel_phase(torch, ops) -> dict:
-    """Each kernel against its plain version at the slices' shapes.
+def kernel_phase(torch, ops, attention_train_only: bool = False) -> dict:
+    """Each kernel against its plain version at the slices' shapes; with
+    ``attention_train_only`` only K3 with its LSE and K4.
 
     Alphas are drawn U(0.5, 2), biases N(0, 0.5) and the int8 weights'
     column magnitudes U(0.5, 2), so that every term of the arithmetic moves
@@ -150,21 +223,34 @@ def kernel_phase(torch, ops) -> dict:
 
     cases: dict[str, list] = {name: [] for name in KERNELS}
 
+    def as_tuple(x):
+        return x if isinstance(x, tuple) else (x,)
+
     def compare(name, label, kernel, plain, faults, work, library=None):
         """``work``: (operations, bytes) the function needs on these inputs;
-        ``library``: (name, fn) of one PyTorch call computing it, or None."""
-        out = kernel()
+        ``library``: (name, fn) of one PyTorch call computing it, or None,
+        or (name, fn, fn_subtracted): the time of the first less the second.
+        A function of several outputs (K3 with its LSE, K4) is held to the
+        limits on each; a fault is rejected when any output leaves them."""
+        out = as_tuple(kernel())
         torch.cuda.synchronize()
-        ref = plain()
+        ref = as_tuple(plain())
         torch.cuda.synchronize()
-        if out.shape != ref.shape or not torch.isfinite(out).all():
-            fail(f"{label}: shape {tuple(out.shape)} vs {tuple(ref.shape)} or non-finite output")
-        err = (out.float() - ref.float()).abs().max().item()
-        max_abs_tol = MAX_ABS_TOL * ref.float().abs().max().item()
-        rel = rel_l2(torch, out, ref)
-        fault_rel = {f: rel_l2(torch, fn(), ref) for f, fn in faults.items()}
+        for o, r in zip(out, ref):
+            if o.shape != r.shape or not torch.isfinite(o).all():
+                fail(f"{label}: shape {tuple(o.shape)} vs {tuple(r.shape)} or non-finite output")
+        errs = [(o.float() - r.float()).abs().max().item() for o, r in zip(out, ref)]
+        tols = [MAX_ABS_TOL * r.float().abs().max().item() for r in ref]
+        err, max_abs_tol = max(errs), max(tols)
+        rel = max(rel_l2(torch, o, r) for o, r in zip(out, ref))
+        fault_rel = {f: max(rel_l2(torch, o, r) for o, r in zip(as_tuple(fn()), ref))
+                     for f, fn in faults.items()}
         ms, plain_ms = median_ms(torch, kernel), median_ms(torch, plain)
-        library_ms = None if library is None else median_ms(torch, library[1])
+        library_ms = None
+        if library is not None:
+            library_ms = median_ms(torch, library[1])
+            if len(library) == 3:
+                library_ms -= median_ms(torch, library[2])
         bound_ms, bound_by = bound(*work)
         print(f"kernel {name} {label}: rel_l2 {rel:.6g} (tol {REL_L2_TOL:.6g}) max_abs_err "
               f"{err:.6g} (tol {max_abs_tol:.4g}) planted faults rel_l2 "
@@ -172,7 +258,7 @@ def kernel_phase(torch, ops) -> dict:
               f"ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
               f"{'n/a' if library_ms is None else f'{library_ms:.4f} ({library[0]})'} "
               f"bound_ms {bound_ms:.4f} ({bound_by})", flush=True)
-        if not (rel <= REL_L2_TOL and err <= max_abs_tol):  # NaN fails too
+        if not (rel <= REL_L2_TOL and all(e <= t for e, t in zip(errs, tols))):  # NaN fails too
             fail(f"{label}: rel l2 {rel} / max abs {err} above {REL_L2_TOL} / {max_abs_tol}")
         weak = [f for f, r in fault_rel.items() if not r > REL_L2_TOL]
         if weak:
@@ -182,6 +268,88 @@ def kernel_phase(torch, ops) -> dict:
                                 library=None if library is None else library[0],
                                 bound_ms=bound_ms, bound_by=bound_by,
                                 planted_fault_rel_l2=fault_rel))
+
+    # K3 with its LSE and K4 (attention_bwd, both of its kernels) at
+    # ATTENTION_TRAIN_CASES. The library calls are SDPA with the same bool
+    # mask on inputs that require grad: for K3 its forward (which keeps its
+    # LSE for the backward), for K4 its backward (forward and backward timed
+    # together, the forward subtracted). K4's plain version takes the plain
+    # LSE, so an LSE error of K3 also shows in dq, dk and dv.
+    for label, (b, t, h, d, lens) in ATTENTION_TRAIN_CASES:
+        q, k, v, g = (normal(b, t, h, d).to(bf16) for _ in range(4))
+        mask = None
+        n_keys = [t] * b
+        if lens is not None:
+            mask = torch.arange(t, device=dev)[None] < torch.tensor(lens, device=dev)[:, None]
+            n_keys = list(lens)
+        o, lse = ops.flash_mha(q, k, v, mask=mask, return_lse=True)
+        lse_ref = ops.attention_lse_reference(q, k, mask=mask)
+        torch.cuda.synchronize()
+        last = (t - 1) // 64 * 64  # the first query row of the last tile
+        g_cut = g.clone()
+        g_cut[:, last:] = 0
+        elems = b * t * h * d
+        key_work = sum(n_keys) * t * h * d  # per (query, valid key, head, depth)
+
+        def plain_lse(mask=mask):
+            return ops.mha_reference(q, k, v, mask=mask), ops.attention_lse_reference(q, k, mask=mask)
+
+        def cut_last_tile():
+            ref_o, ref_lse = plain_lse()
+            ref_o = ref_o.clone()
+            ref_o[:, last:] = 0
+            return ref_o, ref_lse
+
+        faults = {"last query tile skipped": cut_last_tile}
+        if mask is not None:
+            faults["mask ignored"] = lambda: plain_lse(None)
+        qt, kt, vt = (z.transpose(1, 2).contiguous().requires_grad_() for z in (q, k, v))
+        gt = g.transpose(1, 2).contiguous()
+        sdpa_mask = None if mask is None else mask[:, None, None, :]
+
+        def sdpa_fwd():
+            with torch.enable_grad():
+                return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=sdpa_mask)
+
+        def sdpa_fwd_bwd():
+            with torch.enable_grad():
+                return torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), gt)
+
+        # SDPA on inputs that require grad keeps its LSE for the backward
+        compare("attention", f"{label} with LSE",
+                lambda: ops.flash_mha(q, k, v, mask=mask, return_lse=True), plain_lse, faults,
+                (4 * key_work, 4 * elems * 2 + b * t + b * h * t * 4),
+                ("scaled_dot_product_attention, inputs requiring grad", sdpa_fwd))
+        lse_err = (lse - lse_ref).abs().max().item()
+        print(f"kernel attention {label} with LSE: LSE max abs err {lse_err:.4g} "
+              f"(tol {LSE_ABS_TOL})", flush=True)
+        if not lse_err <= LSE_ABS_TOL:
+            fail(f"{label}: K3's LSE is off by {lse_err}, above {LSE_ABS_TOL}")
+
+        def bwd_plain(mask=mask, o=o, g=g):
+            return ops.flash_mha_bwd_reference(q, k, v, mask, o, lse_ref, g)
+
+        def dk_unscaled():
+            dq, dk, dv = bwd_plain()
+            return dq, dk * d ** 0.5, dv
+
+        faults = {"delta dropped": lambda: bwd_plain(o=torch.zeros_like(o)),
+                  "dk without the scale": dk_unscaled,
+                  "last query tile skipped": lambda: bwd_plain(g=g_cut)}
+        if mask is not None:
+            faults["mask ignored"] = lambda: bwd_plain(mask=None)
+        compare("attention_bwd", label,
+                lambda: ops.flash_mha_bwd(q, k, v, mask, o, lse, g), bwd_plain, faults,
+                (10 * key_work, 8 * elems * 2 + b * h * t * 4 + b * t),
+                ("scaled_dot_product_attention backward", sdpa_fwd_bwd, sdpa_fwd))
+        if mask is not None:  # keys at padded positions get exactly zero dk and dv
+            _, dk, dv = ops.flash_mha_bwd(q, k, v, mask, o, lse, g)
+            if dk[~mask].any() or dv[~mask].any():
+                fail(f"{label}: K4 wrote non-zero dk or dv at padded keys")
+            print(f"kernel attention_bwd {label}: dk and dv exactly 0 at "
+                  f"{int((~mask).sum())} padded keys", flush=True)
+    if attention_train_only:
+        return cases
 
     def resunit_work(b, t, c):
         return 2 * b * t * c * c * 8, 2 * 2 * b * t * c + 8 * c * c * 2 + 4 * c * 4
@@ -378,7 +546,7 @@ def served_path(torch, t2s, s2a, dev, smi: str) -> dict:
                 + s2a_passes * block_int8_sites(enc) + fine)
         attention = (main.depth * PRED_ITERS + (0 if has_gt else lp.depth) + s2a_passes)
         return {"resunit": 3 * len(s2a_cfg.codec.decoder_rates), "decoder_block": 0,
-                "attention": attention, "int8_dense": int8}
+                "attention": attention, "attention_bwd": 0, "int8_dense": int8}
 
     calls = []  # (rows, engine wall s, audio s) of each engine call the server makes
     synthesize = engine.synthesize
@@ -490,12 +658,225 @@ def served_path(torch, t2s, s2a, dev, smi: str) -> dict:
     return counts["concurrent"]
 
 
+def training_path(torch, ops, dev, smi: str) -> dict:
+    """(d): the s2a recipe at full width through ``run_s2a.main_from_dict``."""
+    import tempfile
+
+    import numpy as np
+
+    import edm_tts_tpu_torch.models.conformer.conformer as conformer_mod
+    import edm_tts_tpu_torch.ops.attention as attention_mod
+    from edm_tts_tpu_torch.data.token_shards import TokenShardWriter
+    from edm_tts_tpu_torch.kernels import launches, reset_launches
+    from edm_tts_tpu_torch.profile_synthesis import s2a_train_recipe
+    from edm_tts_tpu_torch.train import run_s2a
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_s2a_")
+    try:
+        # token shards: 48 items of 800-1000 frames, 12 x 1024 codes
+        rng = np.random.default_rng(SEED)
+        shards = os.path.join(tmp, "shards")
+        writer = TokenShardWriter(shards, items_per_shard=16)
+        for i in range(TRAIN_ITEMS):
+            t = int(rng.integers(800, 1001))
+            writer.add(f"utt{i}", rng.integers(0, 1024, (12, t)), rng.integers(0, 1024, t))
+        writer.close()
+        raw = s2a_train_recipe(os.path.join(tmp, "out"), shards, SEED, TRAIN_STEPS)
+        micro = raw["per_device_train_batch_size"] // raw["micro_batches"]
+
+        # one micro-batch's loss and gradient: K3 + K4 against the plain
+        # attention, on the seeded init main_from_dict starts from
+        model = run_s2a.build_model(raw, dev)
+        cfg = model.cfg
+        frames = int(raw["training_segment_length"] * cfg.codec.sample_rate / cfg.codec.hop_length)
+        before = {k: v.detach().to("cpu", copy=True) for k, v in model.state_dict().items()}
+        batch = next(run_s2a.code_batch_iterator(shards, frames, micro, SEED))
+        ac, sem = (torch.as_tensor(batch[k], device=dev)
+                   for k in ("acoustic_tokens", "semantic_tokens"))
+        mask = ops.cosine_schedule_mask(torch.Generator(device=dev).manual_seed(SEED),
+                                        micro, frames, device=dev)
+
+        def loss_and_grad(m):
+            m.zero_grad(set_to_none=True)
+            with torch.enable_grad():
+                with torch.autocast("cuda", dtype=torch.bfloat16):
+                    loss = m.forward_train(ac, sem, mask_override=mask, train=False)["loss"]
+                loss.backward()
+            grad = torch.cat([p.grad.flatten() for p in m.parameters() if p.requires_grad])
+            m.zero_grad(set_to_none=True)
+            return loss.item(), grad
+
+        reset_launches()
+        loss_k, grad_k = loss_and_grad(model)
+        torch.cuda.synchronize()
+        check_counts = dict(launches)
+        # the same step with the Conformer's attention through the plain
+        # version, autograd differentiating it: for this one call only
+        true_mha = conformer_mod.mha
+
+        def plain_mha(q, k, v, *, mask=None, implementation="auto"):
+            return ops.mha_reference(q, k, v, mask=mask)
+
+        conformer_mod.mha = plain_mha
+        reset_launches()
+        try:
+            loss_p, grad_p = loss_and_grad(model)
+        finally:
+            conformer_mod.mha = true_mha
+        if launches["attention"] or launches["attention_bwd"]:
+            fail(f"the plain-attention step launched kernels: {dict(launches)}")
+        true_bwd = attention_mod.flash_mha_bwd
+
+        def dk_scaled_wrong(q, k, v, mask, o, lse, g):
+            dq, dk, dv = true_bwd(q, k, v, mask, o, lse, g)
+            return dq, dk * q.shape[-1] ** 0.5, dv
+
+        attention_mod.flash_mha_bwd = dk_scaled_wrong
+        try:
+            _, grad_fault = loss_and_grad(model)
+        finally:
+            attention_mod.flash_mha_bwd = true_bwd
+        del model
+        loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+        grad_rel = rel_l2(torch, grad_k, grad_p)
+        fault_rel = rel_l2(torch, grad_fault, grad_p)
+        del grad_k, grad_p, grad_fault
+        print(f"train (d) one micro-batch B{micro} x {frames}, K3+K4 vs plain attention: loss "
+              f"{loss_k:.6f} vs {loss_p:.6f} (relative {loss_rel:.3g}, tol {TRAIN_LOSS_REL_TOL}), "
+              f"gradient relative l2 {grad_rel:.4g} (tol {TRAIN_GRAD_REL_L2_TOL}); planted K4 "
+              f"fault (dk scaled by sqrt(D)) {fault_rel:.4g}; launches {check_counts}", flush=True)
+        if not (loss_rel <= TRAIN_LOSS_REL_TOL and grad_rel <= TRAIN_GRAD_REL_L2_TOL):
+            fail(f"training gradient through the kernels differs from the plain attention: "
+                 f"loss {loss_rel}, gradient {grad_rel}")
+        if not fault_rel > TRAIN_GRAD_REL_L2_TOL:
+            fail(f"the gradient limit would let a wrong dk pass ({fault_rel})")
+        depth = cfg.encoder_num_layers
+        if check_counts["attention"] != depth or check_counts["attention_bwd"] != depth:
+            fail(f"one micro-batch launched {check_counts}, want {depth} of K3 and of K4")
+
+        # the main path: 6 optimizer steps of B32 x 768 in 4 micro-batches
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        free = shutil.disk_usage(tmp).free
+        reset_launches()
+        t0 = time.perf_counter()
+        trainer = run_s2a.main_from_dict(raw, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(launches)
+        peak = torch.cuda.max_memory_allocated()
+        steps = [r for r in trainer.history if "train/loss" in r]
+        losses = [r["train/loss"] for r in steps]
+        norms = [r["train/grad_norm"] for r in steps]
+        step_s = [1.0 / r["train/steps_per_sec"] for r in steps]
+        med = statistics.median(step_s[1:])  # the first step warms up
+        n_micro = raw["micro_batches"]
+        want = {"resunit": 0, "decoder_block": 0, "attention": depth * n_micro * TRAIN_STEPS,
+                "attention_bwd": depth * n_micro * TRAIN_STEPS, "int8_dense": 0}
+        save = trainer.last_save
+        ckpt_bytes = sum(os.path.getsize(os.path.join(r, f))
+                         for r, _, fs in os.walk(save["path"]) for f in fs)
+        after = trainer.model.state_dict()
+        codec_same = all(torch.equal(before[k], after[k].cpu())
+                         for k in before if k.startswith("acoustic_model."))
+        trainable = [n for n, p in trainer.model.named_parameters() if p.requires_grad]
+        still = [n for n in trainable if torch.equal(before[n], after[n].cpu())]
+        print(f"train (d) {len(steps)} steps of B{raw['per_device_train_batch_size']} x "
+              f"{frames} frames ({n_micro} micro-batches), {len(trainable)} trainable tensors "
+              f"({sum(p.numel() for p in trainer.optimizer.params) / 1e6:.1f}M): losses "
+              f"{[round(x, 4) for x in losses]} grad norms {[round(x, 4) for x in norms]} "
+              f"lr {[r['train/lr'] for r in steps]}", flush=True)
+        print(f"train (d) step seconds {[round(x, 4) for x in step_s]}: median {med:.4f} s "
+              f"after the first, {raw['per_device_train_batch_size'] * frames / med:.1f} frames "
+              f"per s; wall {wall:.2f} s with set-up, checkpoint and export; peak device memory "
+              f"{peak / 2 ** 30:.2f} GiB (max_memory_allocated); final checkpoint "
+              f"{ckpt_bytes / 2 ** 30:.2f} GiB saved in {save['seconds']:.2f} s (disk free "
+              f"before {free / 2 ** 30:.1f} GiB); launches {counts} expected {want} ({smi})",
+              flush=True)
+        if not all(np.isfinite(losses + norms)) or len(steps) != TRAIN_STEPS:
+            fail(f"training: {len(steps)} steps, losses {losses}, grad norms {norms}")
+        if not codec_same:
+            fail("training changed the frozen codec's weights")
+        if still:
+            fail(f"training left trainable tensors unchanged: {still[:5]}")
+        if counts != want:
+            fail(f"training launches {counts} != expected {want}")
+        return counts
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def source_faults() -> int:
+    """``--source-faults``: the K3-with-LSE/K4 cases of the kernel phase on
+    the sources as they are (which must pass), then once for each of
+    SOURCE_FAULTS on a copy of the package and of this script in a temporary
+    directory with that one edit, built there; each must be rejected."""
+    import tempfile
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent
+    pkg = root / "edm_tts_tpu_torch"
+    child = [sys.executable, "chip_smoke.py", "--attention-kernels"]
+    print("source faults: the sources as they are (must pass)", flush=True)
+    if subprocess.run(child, cwd=root, timeout=600).returncode != 0:
+        fail("the K3-with-LSE/K4 cases reject the sources as they are")
+    passed = []
+    for name, (source, edits) in SOURCE_FAULTS.items():
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_fault_") as tmp:
+            shutil.copytree(pkg, Path(tmp) / pkg.name,
+                            ignore=shutil.ignore_patterns("_build", "__pycache__"))
+            shutil.copy2(root / "chip_smoke.py", tmp)
+            path = Path(tmp) / pkg.name / "csrc" / source
+            text = path.read_text()
+            for old, new in edits:
+                if old not in text:
+                    fail(f"source fault {name!r}: {old!r} is not in {source}")
+                text = text.replace(old, new)
+            path.write_text(text)
+            print(f"source fault {name!r} planted in {source}:", flush=True)
+            rc = subprocess.run(child, cwd=tmp, timeout=600).returncode
+        if rc not in (0, 3):
+            fail(f"the check of source fault {name!r} did not run to its end (exit {rc})")
+        print(f"source fault {name!r}: {'passed' if rc == 0 else 'rejected'}", flush=True)
+        if rc == 0:
+            passed.append(name)
+    print(f"source faults rejected: {len(SOURCE_FAULTS) - len(passed)} of {len(SOURCE_FAULTS)}",
+          flush=True)
+    if passed:
+        fail(f"source faults passed the K3-with-LSE/K4 cases: {passed}")
+    return 0
+
+
 def main() -> int:
+    import argparse
+
     import torch
 
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    mode = parser.add_mutually_exclusive_group()
+    mode.add_argument("--source-faults", action="store_true",
+                      help="plant SOURCE_FAULTS in copies of K3's and K4's sources; "
+                           "each must be rejected")
+    mode.add_argument("--attention-kernels", action="store_true",
+                      help="only the K3-with-LSE/K4 cases of the kernel phase; exit 3 when "
+                           "one is outside its limits")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False; this smoke run needs an NVIDIA GPU")
+    if args.source_faults:
+        return source_faults()
     from edm_tts_tpu_torch import ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_grad_enabled(False)
+    if args.attention_kernels:
+        try:
+            kernel_phase(torch, ops, attention_train_only=True)
+        except CheckFailed as e:
+            print(e.code, file=sys.stderr, flush=True)
+            return 3
+        return 0
     from edm_tts_tpu_torch.kernels import build, launches, reset_launches
     from edm_tts_tpu_torch.models.s2a import s2a_sample
     from edm_tts_tpu_torch.models.t2s import t2s_sample
@@ -508,9 +889,6 @@ def main() -> int:
         full_width_models,
     )
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_grad_enabled(False)
     dev = torch.device("cuda", 0)
 
     # 1. environment
@@ -561,7 +939,7 @@ def main() -> int:
         fused = sum(1 for i, s in enumerate(codec.decoder_rates)
                     if s % 2 == 0 and 40 % s == 0 and codec.decoder_dim // 2 ** (i + 1) <= 192)
         return {"resunit": 3 * len(codec.decoder_rates), "decoder_block": fused,
-                "attention": attention, "int8_dense": 0}
+                "attention": attention, "attention_bwd": 0, "int8_dense": 0}
 
     def check(label: str, out, full_canvas: bool, counts: dict):
         audio = out["audio"]
@@ -639,8 +1017,13 @@ def main() -> int:
 
     # 5. (c) the served path with int8 weights (quantizes the models in place)
     counts_c = served_path(torch, t2s, s2a, dev, smi)
+    del t2s, s2a
+    torch.cuda.empty_cache()
 
-    by_path = {"a": counts_a, "b": counts_b, "c": counts_c}
+    # 6. (d) s2a training at full width
+    counts_d = training_path(torch, ops, dev, smi)
+
+    by_path = {"a": counts_a, "b": counts_b, "c": counts_c, "d": counts_d}
     record = {"kernels": []}
     for name in KERNELS:
         cs = cases[name]
@@ -648,8 +1031,9 @@ def main() -> int:
         ops_share = sum(c["bound_ms"] for c in cs if c["bound_by"] == "operations")
         record["kernels"].append(dict(
             name=name, route="cuda", **KERNELS[name],
-            # the path the kernel runs on: K2 is off on the served masked decode
-            launches=counts_c[name] if counts_c[name] else counts_a[name],
+            # the path the kernel runs on: K2 is off on the served masked
+            # decode, K4 runs on the training path only
+            launches=next((c[name] for c in (counts_c, counts_a, counts_d) if c[name]), 0),
             launches_by_path={p: c[name] for p, c in by_path.items()},
             max_abs_err=max(c["max_abs_err"] for c in cs),
             rel_l2=max(c["rel_l2"] for c in cs),

@@ -22,6 +22,12 @@
 // at all attends uniformly to every key (the mean of V), as the Pallas
 // kernel's -1e30 bias and the plain version give. D is padded with zeros to DP (32 or 64),
 // the MMA depth; the padded lanes add nothing and are not written back.
+//
+// With a non-null ``lse`` it also writes each query row's log-sum-exp of
+// the scaled, masked scores, m + log(l) in f32 (B*H, Tq), as the Pallas
+// kernel's ``return_lse`` does: the statistic K4 (attention_bwd.cu) takes
+// to rebuild the probabilities. A row with no valid key has all scores 0
+// over all Tk keys, so its LSE is log(Tk).
 #include <math.h>
 
 #include "common.cuh"
@@ -49,7 +55,8 @@ template <int DP>
 __global__ void __launch_bounds__(kAttnWarps * 32) attn_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const unsigned char* __restrict__ mask,
-    bf16* __restrict__ o, int Tq, int Tk, int H, int D, float scale) {
+    bf16* __restrict__ o, float* __restrict__ lse, int Tq, int Tk, int H, int D,
+    float scale) {
   using namespace nvcuda;
   using L = AttnSmem<DP>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -172,12 +179,16 @@ __global__ void __launch_bounds__(kAttnWarps * 32) attn_kernel(
       o[(((size_t)b * Tq + t) * H + h) * D + d] = __float2bfloat16(ow[r * DP + d] / lw[r]);
     }
   }
+  if (lse != nullptr && lane < 16) {
+    const int t = q0 + warp * 16 + lane;
+    if (t < Tq) lse[(size_t)bh * Tq + t] = mw[lane] + logf(lw[lane]);
+  }
 }
 
 template <int DP>
 static cudaError_t launch_attn(const void* q, const void* k, const void* v,
-                               const void* mask, void* o, int B, int Tq, int Tk,
-                               int H, int D, cudaStream_t stream) {
+                               const void* mask, void* o, void* lse, int B, int Tq,
+                               int Tk, int H, int D, cudaStream_t stream) {
   const size_t smem = AttnSmem<DP>::total;
   cudaError_t err = cudaFuncSetAttribute(
       attn_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -185,22 +196,24 @@ static cudaError_t launch_attn(const void* q, const void* k, const void* v,
   dim3 grid((Tq + kBQ - 1) / kBQ, B * H);
   attn_kernel<DP><<<grid, kAttnWarps * 32, smem, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v,
-      (const unsigned char*)mask, (bf16*)o, Tq, Tk, H, D, 1.0f / sqrtf((float)D));
+      (const unsigned char*)mask, (bf16*)o, (float*)lse, Tq, Tk, H, D,
+      1.0f / sqrtf((float)D));
   return cudaGetLastError();
 }
 
 }  // namespace edm
 
 // q: (B, Tq, H, D), k and v: (B, Tk, H, D), o: (B, Tq, H, D), all bf16;
-// mask: (B, Tk) bool (1 = attend) or null. 1 <= D <= 64.
+// mask: (B, Tk) bool (1 = attend) or null; lse: f32 (B*H, Tq) or null.
+// 1 <= D <= 64.
 extern "C" int edm_attention(const void* q, const void* k, const void* v,
-                             const void* mask, void* o, int B, int Tq, int Tk,
-                             int H, int D, void* stream) {
+                             const void* mask, void* o, void* lse, int B, int Tq,
+                             int Tk, int H, int D, void* stream) {
   using namespace edm;
   cudaGetLastError();  // a stale error must not be reported as this launch's
   if (D < 1 || D > 64 || Tq < 1 || Tk < 1 || B < 1 || H < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (D <= 32) return (int)launch_attn<32>(q, k, v, mask, o, B, Tq, Tk, H, D, s);
-  return (int)launch_attn<64>(q, k, v, mask, o, B, Tq, Tk, H, D, s);
+  if (D <= 32) return (int)launch_attn<32>(q, k, v, mask, o, lse, B, Tq, Tk, H, D, s);
+  return (int)launch_attn<64>(q, k, v, mask, o, lse, B, Tq, Tk, H, D, s);
 }

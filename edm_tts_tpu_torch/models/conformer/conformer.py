@@ -15,9 +15,16 @@ defaults and are kept from the JAX package:
 - q and k/v are separate bias-free linears; ``heads * dim_head`` may differ
   from ``dim`` (the t2s model runs 8 x 24 = 192 inside a width of 384).
 
-Attention goes through ``ops.mha``: kernel K3 on the card. The linears and
-the pointwise convs are the JAX package's ``QDense`` sites:
-``models/quantize.py`` swaps them for ``QLinear`` (kernel K5 on the card).
+Attention goes through ``ops.mha``: kernel K3 on the card, and K4 in the
+backward when a gradient is needed. The linears and the pointwise convs are
+the JAX package's ``QDense`` sites: ``models/quantize.py`` swaps them for
+``QLinear`` (kernel K5 on the card).
+
+Dropout (the JAX package's ``train=True``) is on when a forward is given a
+``dropout_generator``; its masks come from that generator. It sits where
+the JAX modules put it: after the Swish and after the second linear of each
+feed-forward, and at the end of the conv module. ``attn_dropout`` is
+carried in the config but not applied, as the JAX ``Attention`` does not.
 """
 
 from __future__ import annotations
@@ -42,6 +49,25 @@ class ConformerConfig:
     ff_mult: int = 4
     conv_expansion_factor: int = 2
     conv_kernel_size: int = 31
+    attn_dropout: float = 0.0
+    ff_dropout: float = 0.0
+    conv_dropout: float = 0.0
+    attn_implementation: str = "auto"
+    # "none" | "int8": set by models/quantize.py, which swaps the linears
+    quantize: str = "none"
+    # gradient checkpointing and its policy: not ported (the trainer raises)
+    remat: bool = False
+    remat_policy: str = "dots"
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep with probability ``1 - rate``, scale kept
+    values by ``1 / (1 - rate)``; a no-op without a generator (inference)
+    or at rate 0."""
+    if generator is None or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
 class _PreNorm(nn.Module):
@@ -60,28 +86,32 @@ class _Scale(nn.Module):
         self.scale = scale
         self.fn = fn
 
-    def forward(self, x):
-        return self.fn(x) * self.scale
+    def forward(self, x, **kwargs):
+        return self.fn(x, **kwargs) * self.scale
 
 
 class FeedForward(nn.Module):
     """Linear -> Swish -> Linear; ``net.0`` and ``net.3`` as in the reference."""
 
-    def __init__(self, dim: int, mult: int, **kw):
+    def __init__(self, dim: int, mult: int, rate: float = 0.0, **kw):
         super().__init__()
+        self.rate = rate
         self.net = nn.Sequential(
             nn.Linear(dim, dim * mult, **kw), nn.SiLU(), nn.Identity(),
             nn.Linear(dim * mult, dim, **kw), nn.Identity(),
         )
 
-    def forward(self, x):
-        return self.net(x)
+    def forward(self, x, *, dropout_generator=None):
+        lin1, act, _, lin2, _ = self.net
+        x = dropout(act(lin1(x)), self.rate, dropout_generator)
+        return dropout(lin2(x), self.rate, dropout_generator)
 
 
 class Attention(nn.Module):
-    def __init__(self, dim: int, heads: int, dim_head: int, **kw):
+    def __init__(self, dim: int, heads: int, dim_head: int, implementation: str = "auto", **kw):
         super().__init__()
         self.heads, self.dim_head = heads, dim_head
+        self.implementation = implementation
         inner = heads * dim_head
         self.to_q = nn.Linear(dim, inner, bias=False, **kw)
         self.to_kv = nn.Linear(dim, 2 * inner, bias=False, **kw)
@@ -95,7 +125,8 @@ class Attention(nn.Module):
         if rope is not None:
             q = apply_rope(rope[:, None, :], q)
             k = apply_rope(rope[:, None, :], k)
-        out = mha(q.contiguous(), k.contiguous(), v.contiguous(), mask=mask)
+        out = mha(q.contiguous(), k.contiguous(), v.contiguous(), mask=mask,
+                  implementation=self.implementation)
         return self.to_out(out.reshape(b, t, -1))
 
 
@@ -138,8 +169,10 @@ class ConvModule(nn.Module):
     """LN -> pointwise (dim -> 2*inner) -> GLU -> depthwise -> Swish ->
     ChanLayerNorm -> pointwise (inner -> dim); ``net.{0,2,4,6,7}``."""
 
-    def __init__(self, dim: int, expansion_factor: int, kernel_size: int, **kw):
+    def __init__(self, dim: int, expansion_factor: int, kernel_size: int, rate: float = 0.0,
+                 **kw):
         super().__init__()
+        self.rate = rate
         inner = dim * expansion_factor
         self.net = nn.ModuleList([
             nn.LayerNorm(dim, eps=LN_EPS, **kw), nn.Identity(),
@@ -148,7 +181,7 @@ class ConvModule(nn.Module):
             ChanLayerNorm(inner, **kw), _Pointwise(inner, dim, 1, **kw),
         ])
 
-    def forward(self, x, *, pad_mask=None):
+    def forward(self, x, *, pad_mask=None, dropout_generator=None):
         norm, _, pw_in, _, depthwise, _, chan_norm, pw_out = self.net
         x = pw_in(norm(x))
         val, gate = x.chunk(2, dim=-1)
@@ -157,24 +190,28 @@ class ConvModule(nn.Module):
             x = torch.where(pad_mask[:, :, None], x, 0.0)
         x = depthwise(x)
         x = chan_norm(x * torch.sigmoid(x))
-        return pw_out(x)
+        return dropout(pw_out(x), self.rate, dropout_generator)
 
 
 class ConformerBlock(nn.Module):
     def __init__(self, cfg: ConformerConfig, **kw):
         super().__init__()
         c = cfg
-        self.ff1 = _Scale(0.5, _PreNorm(c.dim, FeedForward(c.dim, c.ff_mult, **kw), **kw))
-        self.attn = _PreNorm(c.dim, Attention(c.dim, c.heads, c.dim_head, **kw), **kw)
-        self.conv = ConvModule(c.dim, c.conv_expansion_factor, c.conv_kernel_size, **kw)
-        self.ff2 = _Scale(0.5, _PreNorm(c.dim, FeedForward(c.dim, c.ff_mult, **kw), **kw))
+        self.ff1 = _Scale(0.5, _PreNorm(
+            c.dim, FeedForward(c.dim, c.ff_mult, c.ff_dropout, **kw), **kw))
+        self.attn = _PreNorm(c.dim, Attention(c.dim, c.heads, c.dim_head,
+                                              c.attn_implementation, **kw), **kw)
+        self.conv = ConvModule(c.dim, c.conv_expansion_factor, c.conv_kernel_size,
+                               c.conv_dropout, **kw)
+        self.ff2 = _Scale(0.5, _PreNorm(
+            c.dim, FeedForward(c.dim, c.ff_mult, c.ff_dropout, **kw), **kw))
         self.post_norm = nn.LayerNorm(c.dim, eps=LN_EPS, **kw)
 
-    def forward(self, x, *, rope=None, mask=None, conv_pad_mask=None):
-        x = x + self.ff1(x)
+    def forward(self, x, *, rope=None, mask=None, conv_pad_mask=None, dropout_generator=None):
+        x = x + self.ff1(x, dropout_generator=dropout_generator)
         x = x + self.attn(x, rope=rope, mask=mask)
-        x = x + self.conv(x, pad_mask=conv_pad_mask)
-        x = x + self.ff2(x)
+        x = x + self.conv(x, pad_mask=conv_pad_mask, dropout_generator=dropout_generator)
+        x = x + self.ff2(x, dropout_generator=dropout_generator)
         return self.post_norm(x)
 
 

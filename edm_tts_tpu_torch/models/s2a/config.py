@@ -45,6 +45,12 @@ class S2AConfig:
             heads=self.encoder_num_heads,
             ff_mult=self.encoder_ff_mult,
             conv_kernel_size=self.encoder_conv_kernel_size,
+            attn_dropout=self.encoder_attn_dropout,
+            ff_dropout=self.encoder_ff_dropout,
+            conv_dropout=self.encoder_conv_dropout,
+            remat=self.gradient_checkpointing,
+            attn_implementation=self.attn_implementation,
+            quantize=self.quantize,
         )
 
     @property

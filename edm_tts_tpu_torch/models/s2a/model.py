@@ -1,5 +1,6 @@
-"""Semantic->acoustic injection Conformer, inference side (port of
-edm_tts_tpu/models/s2a/model.py).
+"""Semantic->acoustic injection Conformer (port of
+edm_tts_tpu/models/s2a/model.py): inference and the masked-LM training
+forward.
 
 Sixteen Conformer blocks predict all 12 RVQ levels; at the injection
 layers (4, 7, 10, 13) the coarse levels decoded so far are turned back into
@@ -7,6 +8,11 @@ codec features and injected (dynamic injection): argmax of the stacked
 coarse logits -> codec ``codes_to_features`` (f32) -> ``FeatProj`` -> add,
 plus the previous coarse output as a residual. Prompt positions take the
 prompt's ground-truth features instead (a ``where`` on ``mask_time``).
+
+Training (``forward_train``) masks a cosine-schedule share of the
+positions, feeds the teacher's cumulative codec features at the injection
+layers and takes the cross-entropy of all 12 levels on the masked
+positions.
 
 Module names follow the reference checkpoint: the frozen codec is
 ``acoustic_model``, the blocks ``encoder.layers.*``, the heads
@@ -21,7 +27,12 @@ from torch import nn
 from edm_tts_tpu_torch.models.codec.model import Codec
 from edm_tts_tpu_torch.models.conformer.conformer import LN_EPS, ConformerBlock
 from edm_tts_tpu_torch.models.s2a.config import S2AConfig
-from edm_tts_tpu_torch.ops import embed_take, rope_frequencies
+from edm_tts_tpu_torch.ops import (
+    cosine_schedule_mask,
+    embed_take,
+    masked_cross_entropy,
+    rope_frequencies,
+)
 
 
 def _feat_proj(d_in: int, d_out: int, **kw) -> nn.Sequential:
@@ -148,6 +159,73 @@ class InjectionConformer(nn.Module):
         if generated_start:
             final = final[:, generated_start:]
             coarse = [c[:, generated_start:] for c in coarse]
+        return self._all_level_logits(final, coarse)
+
+    def _all_level_logits(self, final: torch.Tensor, coarse: list[torch.Tensor]) -> torch.Tensor:
+        """Coarse outputs and the fine head of ``final`` -> ``(B, Q, T, N)``."""
         b, t, h = final.shape
         fine = self.encoder.fine_head(final).reshape(b, t, self.remaining_quantizers, h)
         return self.to_logits(torch.cat([torch.stack(coarse, dim=2), fine], dim=2))
+
+    # -- training ------------------------------------------------------------
+    def forward_teacher_logits(
+        self, x: torch.Tensor, teacher: torch.Tensor, *, dropout_generator=None
+    ) -> torch.Tensor:
+        """All 16 blocks with teacher injection -> logits ``(B, Q, T, N)``.
+
+        ``teacher`` ``(n_inj, B, T, D)``: the codec features injected after
+        each injection layer (the JAX ``_run_stack`` with
+        ``teacher_injections``)."""
+        cfg = self.cfg
+        rope = rope_frequencies(x.shape[-2], cfg.encoder_config.dim_head, device=x.device)
+        coarse: list[torch.Tensor] = []
+        for i, block in enumerate(self.encoder.layers):
+            cur = block(x, rope=rope, dropout_generator=dropout_generator)
+            if i in cfg.injection_layers:
+                idx = cfg.injection_layers.index(i)
+                residual = coarse[-1] if (coarse and cfg.residual) else 0.0
+                coarse.append(cur)
+                if cfg.use_injection:
+                    cur = cur + self.encoder.project_injection[idx](teacher[idx].to(self.dtype))
+                cur = cur + residual
+            x = cur
+        return self._all_level_logits(x, coarse)
+
+    def forward_train(
+        self,
+        acoustic_tokens: torch.Tensor,
+        semantic_tokens: torch.Tensor,
+        *,
+        generator: torch.Generator | None = None,
+        mask_override: torch.Tensor | None = None,
+        train: bool = True,
+    ) -> dict[str, torch.Tensor]:
+        """Masked-LM training forward (the JAX ``__call__``).
+
+        ``acoustic_tokens`` int ``(B, Q, T)``, ``semantic_tokens`` int
+        ``(B, T)``. The mask (bool ``(B, T)``, True = masked) is drawn from
+        ``generator`` unless ``mask_override`` gives it; with ``train`` the
+        dropout masks come from ``generator`` too. Returns ``loss`` (f32
+        scalar), ``mask`` and ``n_masked``, the masked-position count that
+        weights micro-batched gradient accumulation.
+        """
+        cfg = self.cfg
+        b, t = semantic_tokens.shape
+        sem = self.embed_semantic(semantic_tokens)
+        with torch.no_grad():  # the codec is frozen
+            ac_unred = self.acoustic_features_unreduced(acoustic_tokens)  # (B, Q, T, D)
+        ac0 = self.project_acoustic(ac_unred[:, 0])
+        if mask_override is not None:
+            mask = mask_override
+        else:
+            mask = cosine_schedule_mask(generator, b, t, device=semantic_tokens.device)
+        enc_in = torch.where(mask[:, :, None], sem + self.mask_token, sem + ac0)
+        n_inj = len(cfg.injection_layers)
+        teacher = torch.cumsum(ac_unred, dim=1)[:, :n_inj].transpose(0, 1)  # (n_inj, B, T, D)
+        logits = self.forward_teacher_logits(
+            enc_in, teacher, dropout_generator=generator if train else None)
+        targets = acoustic_tokens.long()
+        loss_mask = (torch.ones_like(targets, dtype=torch.bool) if cfg.loss_all
+                     else mask[:, None, :].expand(targets.shape))
+        loss = masked_cross_entropy(logits, targets, loss_mask)
+        return {"loss": loss, "mask": mask, "n_masked": mask.sum()}

@@ -69,6 +69,13 @@ class T2SConfig:
             heads=self.main_encoder_num_heads,
             ff_mult=self.main_encoder_ff_mult,
             conv_kernel_size=self.main_encoder_conv_kernel_size,
+            attn_dropout=self.main_encoder_attn_dropout,
+            ff_dropout=self.main_encoder_ff_dropout,
+            conv_dropout=self.main_encoder_conv_dropout,
+            remat=self.gradient_checkpointing,
+            remat_policy=self.remat_policy,
+            attn_implementation=self.attn_implementation,
+            quantize=self.quantize,
         )
 
     @property
@@ -81,6 +88,11 @@ class T2SConfig:
             heads=self.length_predictor_num_heads,
             ff_mult=self.length_predictor_ff_mult,
             conv_kernel_size=self.length_predictor_conv_kernel_size,
+            attn_dropout=self.length_predictor_attn_dropout,
+            ff_dropout=self.length_predictor_ff_dropout,
+            conv_dropout=self.length_predictor_conv_dropout,
+            attn_implementation=self.attn_implementation,
+            quantize=self.quantize,
         )
 
     def to_json(self) -> str:

@@ -1,12 +1,18 @@
-"""Multi-head attention: kernel K3 (csrc/attention.cu) and its plain version.
+"""Multi-head attention: kernels K3 (csrc/attention.cu) and K4
+(csrc/attention_bwd.cu), their plain versions and the autograd Function
+that joins them.
 
 Port of edm_tts_tpu/ops/attention.py (``mha``, ``mha_reference``) and
-edm_tts_tpu/ops/pallas_attention.py (``flash_mha``). Layout ``(B, T, H, D)``;
-the key-padding mask is bool ``(B, T_k)``, True = attend.
+edm_tts_tpu/ops/pallas_attention.py (``flash_mha``, ``flash_mha_bwd``,
+``flash_mha_diff``). Layout ``(B, T, H, D)``; the key-padding mask is bool
+``(B, T_k)``, True = attend. The LSE is f32 ``(B*H, T_q)`` (the JAX
+package's ``(B*H, T_q, 1)`` without the trailing 1).
 
-A CUDA tensor always goes to K3 (the JAX package's ``B*T >= 4096`` switch
-was a TPU v5e measurement and is not carried over); a CPU tensor goes to
-``mha_reference``.
+A CUDA tensor always goes to the kernels (the JAX package's ``B*T >= 4096``
+switch was a TPU v5e measurement and is not carried over); a CPU tensor
+goes to the plain versions. A batch row whose mask holds no valid key
+attends uniformly to every key (scores 0), in the kernels and the plain
+versions alike.
 """
 
 from __future__ import annotations
@@ -31,38 +37,177 @@ def mha_reference(
     return torch.einsum("bhij,bjhd->bihd", attn, v)
 
 
-def flash_mha(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, mask: torch.Tensor | None = None
+def _key_valid(mask: torch.Tensor | None, b: int, tk: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(keys that count ``(B, T_k)``, score scale per batch row ``(B,)``):
+    a row with no valid key counts every key with scale 0."""
+    if mask is None:
+        return torch.ones(b, tk, dtype=torch.bool, device=device), torch.ones(b, device=device)
+    any_valid = mask.any(dim=-1)
+    return mask | ~any_valid[:, None], any_valid.float()
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor, mask: torch.Tensor | None):
+    """f32 scaled scores ``(B, H, T_q, T_k)`` with the keys that count and
+    the per-row scale, as the kernels form them."""
+    b, _, _, d = q.shape
+    valid, row_scale = _key_valid(mask, b, k.shape[1], q.device)
+    sc = row_scale * d ** -0.5
+    s = torch.einsum("bihd,bjhd->bhij", q.float(), k.float()) * sc[:, None, None, None]
+    return s, valid[:, None, None, :], sc
+
+
+def attention_lse_reference(
+    q: torch.Tensor, k: torch.Tensor, *, mask: torch.Tensor | None = None
 ) -> torch.Tensor:
+    """Log-sum-exp of the scaled, masked scores per query row, f32
+    ``(B*H, T_q)``: the plain version of K3's LSE output."""
+    s, valid, _ = _scores(q, k, mask)
+    lse = torch.logsumexp(torch.where(valid, s, -torch.inf), dim=-1)
+    return lse.reshape(-1, q.shape[1])
+
+
+def flash_mha_bwd_reference(q, k, v, mask, o, lse, g):
+    """Plain version of K4: ``(dq, dk, dv)`` from the LSE, as torch ops.
+
+    The same arithmetic as the kernel: ``p = exp(s - lse)`` with keys that
+    do not count exactly 0, ``dv = p^T dO``, ``ds = p (dO V^T - delta)
+    d^-1/2`` with ``delta = rowsum(dO * O)``, ``dq = ds K``, ``dk = ds^T Q``;
+    products in f32, ``p`` and ``ds`` rounded to the inputs' dtype before
+    their products, as the kernel rounds them to bf16. K4's oracle on the
+    card and the CPU path of ``flash_mha_bwd``.
+    """
+    b, tq, h, _ = q.shape
+    dtype = q.dtype
+    s, valid, sc = _scores(q, k, mask)
+    p = torch.where(valid, torch.exp(s - lse.reshape(b, h, tq, 1)), 0.0)
+    gf = g.float()
+    delta = (gf * o.float()).sum(-1).transpose(1, 2)[..., None]  # (B, H, T_q, 1)
+    dv = torch.einsum("bhij,bihd->bjhd", p.to(dtype).float(), gf)
+    dp = torch.einsum("bihd,bjhd->bhij", gf, v.float())
+    ds = (p * (dp - delta) * sc[:, None, None, None]).to(dtype).float()
+    dq = torch.einsum("bhij,bjhd->bihd", ds, k.float())
+    dk = torch.einsum("bhij,bihd->bjhd", ds, q.float())
+    return dq.to(dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_qkv(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               *rows: torch.Tensor) -> None:
+    """q/k/v (and ``rows``: o, dO, shaped like q) contiguous bf16, D <= 64."""
+    b, tq, h, d = q.shape
+    for t in (q, k, v, *rows):
+        if t.dtype != torch.bfloat16 or not t.is_contiguous() or t.device != q.device:
+            raise ValueError(f"{name}: q, k, v (and o, dO) must be contiguous bf16 on {q.device}")
+    if (k.shape != (b, k.shape[1], h, d) or v.shape != k.shape or d > 64
+            or any(t.shape != q.shape for t in rows)):
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)} (need matching B, H, D <= 64)")
+
+
+def _mask_ptr(name: str, mask: torch.Tensor | None, b: int, tk: int, device):
+    if mask is None:
+        return None, None
+    if mask.shape != (b, tk) or mask.dtype != torch.bool or mask.device != device:
+        raise ValueError(f"{name}: mask must be bool ({b}, {tk}) on {device}")
+    mask = mask.contiguous()
+    return mask, mask.data_ptr()
+
+
+def flash_mha(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, mask: torch.Tensor | None = None,
+    return_lse: bool = False,
+):
     """Attention through K3 on the card, ``mha_reference`` on the CPU.
 
-    On CUDA: q/k/v bf16 contiguous ``(B, T, H, D)`` with ``D <= 64``.
+    On CUDA: q/k/v bf16 contiguous ``(B, T, H, D)`` with ``D <= 64``. With
+    ``return_lse`` also returns the f32 ``(B*H, T_q)`` LSE. The output is
+    not attached to autograd; ``mha`` is the differentiable entry point.
     """
     if not q.is_cuda:
-        return mha_reference(q, k, v, mask=mask)
+        out = mha_reference(q, k, v, mask=mask)
+        return (out, attention_lse_reference(q, k, mask=mask)) if return_lse else out
     b, tq, h, d = q.shape
     tk = k.shape[1]
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.bfloat16 or not t.is_contiguous() or t.device != q.device:
-            raise ValueError(f"flash_mha: {name} must be contiguous bf16 on {q.device}")
-    if k.shape != (b, tk, h, d) or v.shape != k.shape or d > 64:
-        raise ValueError(f"flash_mha: shapes q {tuple(q.shape)} k {tuple(k.shape)} "
-                         f"v {tuple(v.shape)} (need matching B, H, D <= 64)")
-    mask_ptr = None
-    if mask is not None:
-        if mask.shape != (b, tk) or mask.dtype != torch.bool or mask.device != q.device:
-            raise ValueError(f"flash_mha: mask must be bool ({b}, {tk}) on {q.device}")
-        mask = mask.contiguous()
-        mask_ptr = mask.data_ptr()
+    _check_qkv("flash_mha", q, k, v)
+    mask, mask_ptr = _mask_ptr("flash_mha", mask, b, tk, q.device)
     out = torch.empty_like(q)
+    lse = torch.empty((b * h, tq), dtype=torch.float32, device=q.device) if return_lse else None
     err = library().edm_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(),
+        None if lse is None else lse.data_ptr(),
         b, tq, tk, h, d, torch.cuda.current_stream(q.device).cuda_stream,
     )
     check_launch(err, "flash_mha")
     launches["attention"] += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
-# The Conformer's entry point (ops/attention.py::mha in the JAX package).
-mha = flash_mha
+def flash_mha_bwd(q, k, v, mask, o, lse, g):
+    """``(dq, dk, dv)`` through K4 on the card, the plain version on the CPU.
+
+    On CUDA: q, k, v, o and ``g`` (dO) contiguous bf16 ``(B, T, H, D)``,
+    ``lse`` f32 ``(B*H, T_q)`` from ``flash_mha(..., return_lse=True)``.
+    ``delta = rowsum(dO * O)`` is one torch reduction here, outside the
+    kernel, as the JAX package computes it in XLA.
+    """
+    if not q.is_cuda:
+        return flash_mha_bwd_reference(q, k, v, mask, o, lse, g)
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    _check_qkv("flash_mha_bwd", q, k, v, o, g)
+    if lse.shape != (b * h, tq) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError(f"flash_mha_bwd: lse must be contiguous f32 ({b * h}, {tq})")
+    mask, mask_ptr = _mask_ptr("flash_mha_bwd", mask, b, tk, q.device)
+    delta = (g.float() * o.float()).sum(-1).transpose(1, 2).contiguous()  # (B, H, T_q)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    err = library().edm_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), mask_ptr, lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b, tq, tk, h, d, torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    check_launch(err, "flash_mha_bwd")
+    launches["attention_bwd"] += 1
+    return dq, dk, dv
+
+
+class FlashMHA(torch.autograd.Function):
+    """K3 with the LSE forward, K4 backward (``flash_mha_diff``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask):
+        o, lse = flash_mha(q, k, v, mask=mask, return_lse=True)
+        ctx.save_for_backward(q, k, v, mask, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, mask, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_mha_bwd(q, k, v, mask, o, lse, g.to(o.dtype).contiguous())
+        return dq, dk, dv, None
+
+
+def mha(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, mask: torch.Tensor | None = None,
+    implementation: str = "auto",
+) -> torch.Tensor:
+    """The Conformer's attention (ops/attention.py::mha in the JAX package).
+
+    On the card: the kernels (K3 alone when no gradient is needed, else
+    ``FlashMHA``: K3 with the LSE and K4 in the backward); on the CPU:
+    ``mha_reference``, which autograd differentiates. ``implementation`` is
+    the config field the JAX package reads; every value other than
+    ``"auto"`` and ``"pallas"`` raises on the card, so no setting moves the
+    card's attention off the kernels (``"xla"`` is accepted on the CPU,
+    where it is the plain path anyway). ``"ring"`` is not ported.
+    """
+    if implementation == "ring":
+        raise NotImplementedError("mha: ring (sequence-parallel) attention is not ported")
+    if implementation not in ("auto", "pallas", "xla"):
+        raise ValueError(f"mha: unknown implementation {implementation!r}")
+    if not q.is_cuda:
+        return mha_reference(q, k, v, mask=mask)
+    if implementation == "xla":
+        raise ValueError("mha: implementation 'xla' (the plain attention) is not run on the "
+                         "card; use 'auto' or 'pallas'")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashMHA.apply(q, k, v, mask)
+    return flash_mha(q, k, v, mask=mask)

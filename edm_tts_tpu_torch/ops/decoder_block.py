@@ -24,7 +24,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from edm_tts_tpu_torch.kernels import launches
+from edm_tts_tpu_torch.kernels import launches, refuse_grad
 from edm_tts_tpu_torch.kernels.build import check_launch, library
 from edm_tts_tpu_torch.ops.resunit import fused_residual_unit, resunit_reference
 from edm_tts_tpu_torch.ops.snake import snake
@@ -85,10 +85,12 @@ def fused_decoder_block(x, alpha0, w3, bias3, ru_params, stride: int):
     On CUDA: ``x`` contiguous bf16 ``(B, T, C_in)``; ``w3`` contiguous bf16
     ``(3, C_in, s*C_out)``; ``alpha0`` and ``bias3`` contiguous f32; ``C_in``
     and ``C_out`` multiples of 16; the residual units' parameters as
-    ``fused_residual_unit`` takes them.
+    ``fused_residual_unit`` takes them. K2 has no backward: on CUDA it
+    raises when autograd would need a gradient through it.
     """
     if not x.is_cuda:
         return decoder_block_reference(x, alpha0, w3, bias3, ru_params, stride=stride)
+    refuse_grad("fused_decoder_block", x, alpha0, w3, bias3, *(p for u in ru_params for p in u))
     if x.dtype != torch.bfloat16 or x.dim() != 3 or not x.is_contiguous():
         raise ValueError(f"fused_decoder_block: x must be contiguous bf16 (B, T, C), "
                          f"got {x.dtype} {tuple(x.shape)}")

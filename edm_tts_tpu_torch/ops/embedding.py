@@ -1,7 +1,9 @@
-"""Embedding lookup (forward of edm_tts_tpu/ops/embedding.py::embed_take).
+"""Embedding lookup and the masked cross-entropy (port of
+edm_tts_tpu/ops/embedding.py).
 
-The JAX version exists for its one-hot-matmul backward on the TPU; the
-inference slice needs only the forward, a plain index.
+The JAX ``embed_take`` has a one-hot-matmul backward because XLA:TPU
+serialises the scatter-add of a gather's gradient; here ``table[ids]`` and
+its index-add backward give the same gradient (pinned by a test).
 """
 
 from __future__ import annotations
@@ -12,3 +14,18 @@ import torch
 def embed_take(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """``table``: ``(V, D)``; ``ids``: int ``(...,)`` -> ``(..., D)``."""
     return table[ids]
+
+
+def masked_cross_entropy(
+    logits: torch.Tensor, labels: torch.Tensor, loss_mask: torch.Tensor
+) -> torch.Tensor:
+    """Mean cross-entropy over the ``loss_mask`` positions.
+
+    ``logits`` ``(..., V)`` (statistics in f32), ``labels`` int ``(...,)``
+    in range, ``loss_mask`` bool ``(...,)``: f32 logsumexp minus the picked
+    logit, summed over the mask and divided by ``max(count, 1)``.
+    """
+    logits = logits.float()
+    nll = torch.logsumexp(logits, dim=-1) - logits.gather(-1, labels[..., None].long())[..., 0]
+    m = loss_mask.float()
+    return (nll * m).sum() / m.sum().clamp_min(1.0)

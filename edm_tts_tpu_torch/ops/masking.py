@@ -1,11 +1,15 @@
-"""MaskGIT sampling primitives (port of edm_tts_tpu/ops/masking.py).
+"""MaskGIT masking and sampling primitives (port of edm_tts_tpu/ops/masking.py).
 
-Randomness is a counter-based hash in plain torch integer ops, keyed by
-(seed, b * 2**20 + t [, n]): the draw at position (b, t) does not depend on
-the canvas length, which is what ``positional_keys`` gives the JAX package
-(bucketed canvases sample like exact-size ones). It runs the same on the
-CPU and the card. It does not reproduce ``jax.random``'s bits; the parity
-tests hand both packages the same noise instead.
+The training mask (``cosine_schedule_mask``) draws from an explicit
+``torch.Generator``; it cannot reproduce ``jax.random``, so the training
+parity tests hand both packages the same mask.
+
+The samplers' randomness is a counter-based hash in plain torch integer
+ops, keyed by (seed, b * 2**20 + t [, n]): the draw at position (b, t) does
+not depend on the canvas length, which is what ``positional_keys`` gives
+the JAX package (bucketed canvases sample like exact-size ones). It runs
+the same on the CPU and the card. It does not reproduce ``jax.random``'s
+bits; the parity tests hand both packages the same noise instead.
 """
 
 from __future__ import annotations
@@ -84,3 +88,20 @@ def random_topk_mask(
     idx = mask_len.to(torch.int64).clamp(0, probs.shape[-1] - 1)
     cut_off = torch.gather(sorted_conf, -1, idx[:, None])
     return confidence < cut_off
+
+
+def cosine_schedule_mask(
+    generator: torch.Generator, batch_size: int, length: int, *, device=None
+) -> torch.Tensor:
+    """Bernoulli mask with rate ``cos(u)``, one ``u ~ U(0, pi/2)`` per row.
+
+    Returns bool ``(batch_size, length)``, True = masked.
+    """
+    u = torch.rand(batch_size, 1, generator=generator, device=device) * (math.pi / 2)
+    return torch.rand(batch_size, length, generator=generator, device=device) < torch.cos(u)
+
+
+def masked_mean(values: torch.Tensor, mask: torch.Tensor, *, eps: float = 1e-9) -> torch.Tensor:
+    """Mean of ``values`` over the positions where ``mask`` is True."""
+    mask = mask.to(values.dtype)
+    return (values * mask).sum() / (mask.sum() + eps)

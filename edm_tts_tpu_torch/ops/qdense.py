@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from edm_tts_tpu_torch.kernels import launches
+from edm_tts_tpu_torch.kernels import launches, refuse_grad
 from edm_tts_tpu_torch.kernels.build import check_launch, library
 
 MODES = ("int8", "w8a8")
@@ -66,7 +66,8 @@ def int8_dense(x: torch.Tensor, kernel_q: torch.Tensor, kernel_scale: torch.Tens
     """``x @ dequant(kernel_q)``: ``(..., K)`` -> ``(..., N)`` in ``x.dtype``.
 
     ``implementation``: ``"int8"`` (K5 on CUDA: x bf16, ``K % 32 == 0`` and
-    ``N % 128 == 0``, else it raises) or ``"w8a8"``.
+    ``N % 128 == 0``, else it raises) or ``"w8a8"``. K5 is inference-only:
+    on CUDA it raises when autograd would need a gradient through it.
     """
     if implementation not in MODES:
         raise ValueError(f"int8_dense: unknown implementation {implementation!r}")
@@ -77,6 +78,7 @@ def int8_dense(x: torch.Tensor, kernel_q: torch.Tensor, kernel_scale: torch.Tens
         return _w8a8(xf, kernel_q, kernel_scale).reshape(*lead, n)
     if not x.is_cuda:
         return int8_dense_reference(xf, kernel_q, kernel_scale).reshape(*lead, n)
+    refuse_grad("int8_dense", x, kernel_scale)
     if x.dtype != torch.bfloat16:
         raise ValueError(f"int8_dense: K5 takes bf16 activations, got {x.dtype}")
     if not quantizable_shape(k, n):

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from edm_tts_tpu_torch.kernels import launches
+from edm_tts_tpu_torch.kernels import launches, refuse_grad
 from edm_tts_tpu_torch.kernels.build import check_launch, library
 from edm_tts_tpu_torch.ops.convolution import conv1d
 from edm_tts_tpu_torch.ops.snake import snake
@@ -34,10 +34,12 @@ def fused_residual_unit(x, alpha1, w7, b7, alpha2, w1, b1, dilation: int):
 
     On CUDA: ``x`` contiguous bf16 ``(B, T, C)`` with ``C % 16 == 0``;
     ``w7`` and ``w1`` contiguous bf16, alphas and biases contiguous f32
-    ``(C,)``, all on x's device.
+    ``(C,)``, all on x's device. K1 has no backward: on CUDA it raises when
+    autograd would need a gradient through it.
     """
     if not x.is_cuda:
         return resunit_reference(x, alpha1, w7, b7, alpha2, w1, b1, dilation=dilation)
+    refuse_grad("fused_residual_unit", x, alpha1, w7, b7, alpha2, w1, b1)
     if x.dtype != torch.bfloat16 or x.dim() != 3 or not x.is_contiguous():
         raise ValueError(f"fused_residual_unit: x must be contiguous bf16 (B, T, C), "
                          f"got {x.dtype} {tuple(x.shape)}")

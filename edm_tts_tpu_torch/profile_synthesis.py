@@ -12,17 +12,24 @@ served batch: three texts of 20-98 bytes through ``TTSEngine.synthesize``
 (bucket 4, ~10 s of audio each). Per part it prints the wall time of an
 untraced run, the device kernel time (the sum of the kernels' own device
 time), the busy share (device time over that wall time) and the kernels by
-device time. With ``--out`` each table also goes to
+device time. Then the training side: the s2a recipe's model
+(``s2a_train_recipe``, f32 weights, bf16 autocast) on one random batch of
+B32 x 768 frames, profiled as one whole optimizer step of 4 micro-batches
+(``train_step``), one micro-batch's forward and backward
+(``train_micro_fwd_bwd``) and the AdamW update alone
+(``train_optimizer``). With ``--out`` each table also goes to
 ``DIR/profile_<part>.txt``.
 
-``full_width_models``, ``bench_inputs``, ``served_engine`` and
-``SERVED_TEXTS`` are the models and requests that chip_smoke.py drives too.
+``full_width_models``, ``bench_inputs``, ``served_engine``,
+``SERVED_TEXTS`` and ``s2a_train_recipe`` are the models, requests and
+recipe that chip_smoke.py drives too.
 """
 
 from __future__ import annotations
 
 import argparse
 import math
+import tempfile
 import time
 from pathlib import Path
 
@@ -76,6 +83,60 @@ def bench_inputs(s2a_cfg: S2AConfig, device, seed: int) -> dict[str, torch.Tenso
     return dict(text=text, text_len=torch.tensor([text.shape[1]], device=device),
                 prompt_ac=prompt_ac.to(device), prompt_sem=prompt_sem.to(device),
                 gt_length=torch.tensor([GEN_FRAMES], device=device))
+
+
+def s2a_train_recipe(output_dir: str, data_dir: str, seed: int, steps: int) -> dict:
+    """configs/injection_conformer/train_config.yaml as a dict, cut to
+    ``steps`` optimizer steps with a 2-step warmup, logging every step and
+    saving once at the end."""
+    return {
+        "output_dir": output_dir, "seed": seed,
+        "extra_model_params": {
+            "num_semantic_tokens": 1024, "hidden_size": 1024,
+            "injection_layers": [4, 7, 10, 13], "residual": True, "use_injection": True,
+            "loss_all": False,
+            "encoder_config": {"depth": 16, "heads": 16, "ff_mult": 4, "conv_kernel_size": 5,
+                               "attn_dropout": 0.0, "ff_dropout": 0.0, "conv_dropout": 0.0}},
+        "dataset_args": {"data_dir": data_dir, "format": "native"},
+        "training_segment_length": 15.36, "per_device_train_batch_size": 32,
+        "max_steps": steps, "learning_rate": 3.0e-4, "warmup_steps": 2,
+        "weight_decay": 0.0, "adam_beta1": 0.8, "adam_beta2": 0.99, "adam_epsilon": 1.0e-8,
+        "max_grad_norm": 0.5, "micro_batches": 4, "logging_steps": 1,
+        "save_steps": steps, "save_total_limit": 2, "bf16": True,
+    }
+
+
+def _profile_training(dev, seed: int, out: Path | None) -> None:
+    """One s2a optimizer step at the recipe's size, and its two parts."""
+    from edm_tts_tpu_torch.train.run_s2a import build_model, s2a_loss, training_arguments
+    from edm_tts_tpu_torch.train.trainer import Trainer
+
+    with tempfile.TemporaryDirectory() as tmp:
+        raw = s2a_train_recipe(tmp + "/out", tmp, seed, steps=100)
+        model = build_model(raw, dev)
+        cfg = model.cfg
+        _, loss_fn = s2a_loss(model, bf16=True)
+        trainer = Trainer(training_arguments(raw), model, loss_fn, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        b, t = raw["per_device_train_batch_size"], 768
+        batch = {"acoustic_tokens": torch.randint(0, cfg.num_codevectors, (b, cfg.num_quantizers, t),
+                                                  generator=gen, device=dev),
+                 "semantic_tokens": torch.randint(0, cfg.num_semantic_tokens, (b, t),
+                                                  generator=gen, device=dev)}
+        micro = {k: v[: b // raw["micro_batches"]] for k, v in batch.items()}
+        steps = iter(range(1000))
+        for _ in range(2):  # warm-up
+            trainer.train_step(batch, next(steps))
+        _profile("train_step", lambda: trainer.train_step(batch, next(steps)), out)
+
+        def micro_fwd_bwd():
+            with torch.enable_grad():
+                loss, _ = loss_fn(micro, torch.Generator(device=dev).manual_seed(seed))
+                loss.backward()
+
+        _profile("train_micro_fwd_bwd", micro_fwd_bwd, out)
+        _profile("train_optimizer", trainer.optimizer.step, out)
+        trainer.metrics.close()
 
 
 @torch.no_grad()
@@ -162,6 +223,9 @@ def main() -> None:
     engine.synthesize(list(SERVED_TEXTS[:3]), "spk", seed=1)  # warm-up at these shapes
     _profile("served_int8_batch", lambda: engine.synthesize(list(SERVED_TEXTS[:3]), "spk", seed=7),
              args.out)
+    del t2s, s2a, engine
+    torch.cuda.empty_cache()
+    _profile_training(dev, args.seed, args.out)
 
 
 if __name__ == "__main__":

@@ -107,7 +107,11 @@ def t2s_pair(seed: int = 0, cfg: dict = TINY_T2S):
         jnp.zeros((1, 4), jnp.int32), jnp.ones((1, 4), bool), jnp.ones((1,)),
         mask_rng=r, train=False,
     ), seed)
-    model = TextToSemantic(T2SConfig(**cfg))
+    port_cfg = T2SConfig(**cfg)
+    for name in ("main_encoder_config", "length_predictor_config"):
+        assert (dataclasses.asdict(getattr(port_cfg, name))
+                == dataclasses.asdict(getattr(jcfg, name)))
+    model = TextToSemantic(port_cfg)
     load_reference_state_dict(model, t2s_to_torch(jcfg, variables))
     return jmodel, variables, model
 
@@ -124,6 +128,7 @@ def s2a_pair(seed: int = 0, cfg: dict = TINY_S2A):
     variables = {"params": {**variables["params"], "codec": codec_vars["params"]}}
     port_cfg = S2AConfig(**cfg, codec=CodecConfig(**TINY_CODEC))
     assert dataclasses.asdict(port_cfg) == dataclasses.asdict(jcfg)
+    assert dataclasses.asdict(port_cfg.encoder_config) == dataclasses.asdict(jcfg.encoder_config)
     model = InjectionConformer(port_cfg)
     load_reference_state_dict(model, s2a_to_torch(jcfg, variables))
     return jmodel, variables, model
