@@ -8,16 +8,16 @@ Phases, each reported on its own line:
   2. build: nvcc builds the kernels from edm_tts_tpu_torch/csrc;
   3. kernels: each hand-written kernel (K1 residual unit, K2 decoder block,
      K3 attention, K3 with its LSE output and K4 attention backward, K5 int8
-     dense) against its plain PyTorch version at the shapes of the
-     synthesis, serving and training paths in bf16: relative l2 and max abs
-     error within their limits (K3's LSE also within an absolute limit),
-     planted faults of the plain version outside
-     them, median times of the kernel, the plain version and, where one
-     PyTorch call computes the same function, that call (for K4 the
+     dense, K6 the attention-variant ablation) against its plain PyTorch
+     version at the shapes of the synthesis, serving, training and ablation
+     paths in bf16: relative l2 and max abs error within their limits (K3's
+     LSE also within an absolute limit), planted faults of the plain version
+     outside them, median times of the kernel, the plain version and, where
+     one PyTorch call computes the same function, that call (for K4 the
      backward of scaled_dot_product_attention: forward and backward timed,
-     the forward subtracted); the least time the card could take (bytes
-     over 3.35 TB/s or operations over 989 TFLOP/s, the H100 SXM's
-     published peaks);
+     the forward subtracted; for K6 SDPA's forward); the least time the card
+     could take (utils/devtime.py: bytes over 3.35 TB/s, products over 989
+     TFLOP/s, exponentials over 3.9e12/s, the H100 SXM's peaks);
   4. end to end: full-width models (the default codec and s2a, the t2s of
      bench.py; edm_tts_tpu_torch/profile_synthesis.py builds them) from a
      seeded random init in bf16 answer (a) a 10 s request with a given
@@ -45,24 +45,44 @@ Phases, each reported on its own line:
      finite losses and gradient norms, the frozen codec unchanged, every
      trainable tensor moved and 16 K3 and 16 K4 launches per micro-batch;
      prints seconds per step, frames per second, peak device memory and
-     the final checkpoint's size and save time.
+     the final checkpoint's size and save time;
+  7. training (e): the t2s recipe of configs/text_to_semantic_w_length/
+     train_config.yaml (hidden 384, 12 + 4 layers, heads 8 x 24, B32, lr
+     2.5e-4, bf16 autocast) through train.run_t2s.main_from_dict on 2100
+     seeded items (length-bucketed batches), 6 steps with a 2-step warmup;
+     first one batch of 8 through K3+K4 against the plain attention as in
+     (d); checks finite losses and gradient norms, every trainable tensor
+     moved, 16 K3 and 16 K4 launches per step and at least two canvas
+     lengths; prints seconds per step, canvas tokens per second and peak
+     device memory;
+  8. gradient checkpointing: one full-width s2a micro-batch (B8 x 768,
+     dropout 0.1, a fixed generator) under the remat policies "full",
+     "mha" and "dots" against none: gradients within REMAT_GRAD_REL_L2_TOL,
+     32 K3 launches under "full" and 16 under the others, peak memory of
+     each; then 2 steps of the s2a recipe as B32 in one micro-batch under
+     "mha" (step time, peak memory);
+  9. ablation (f): K6's variants and query tiles at B32 T1408 H16 D24
+     through profile_attn_variants.sweep, with its launches counted.
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
 There is no CPU fallback: without a CUDA device the script fails.
 
     python3 chip_smoke.py --source-faults
 
-plants each of SOURCE_FAULTS in a copy of K3's or K4's CUDA source (the
-package and this script copied into a temporary directory, built there)
-and runs the K3-with-LSE/K4 cases of phase 3 on it (``--attention-kernels``,
-which exits 3 when a case is outside its limits); the sources as they are
-must pass first, and it exits 1 if any fault passes.
+plants each of SOURCE_FAULTS in a copy of K3's, K4's or K6's CUDA source
+(the package and this script copied into a temporary directory, built
+there) and runs the K3-with-LSE/K4 and ragged K6 cases of phase 3 on it
+(``--attention-kernels``, which exits 3 when a case is outside its
+limits); the sources as they are must pass first, and it exits 1 if any
+fault passes.
 """
 
 from __future__ import annotations
 
 import io
+import itertools
 import json
+import math
 import os
 import shutil
 import statistics
@@ -89,9 +109,6 @@ MAX_ABS_TOL = 2.0 ** -5
 # so the relative limits above, at LSE values ~7, would pass a 10 % error
 # in every gradient
 LSE_ABS_TOL = 1e-4
-# the H100 SXM's published peaks (dense bf16 tensor cores, HBM3)
-PEAK_FLOPS = 989e12
-PEAK_BYTES = 3.35e12
 # the int8 s2a's level-0 logits against the bf16 s2a's on one seeded canvas:
 # measured 0.022 on an H100; the limit is about twice that, and a third of
 # the 15 % loss rule the JAX package's own test holds int8 weights to
@@ -109,6 +126,18 @@ TRAIN_LOSS_REL_TOL = 1e-3
 # cut to 6 steps with a 2-step warmup, on 48 seeded items of 800-1000 frames
 TRAIN_STEPS = 6
 TRAIN_ITEMS = 48
+# the t2s recipe (configs/text_to_semantic_w_length/train_config.yaml) on
+# more seeded items than length_bucketed's 2048-item pool, so its batches
+# are length buckets
+T2S_TRAIN_ITEMS = 2100
+# gradient checkpointing: one s2a micro-batch with dropout under each
+# policy against no remat; the recompute repeats the forward's arithmetic
+# and dropout masks, so the gradients agree to the bit unless a policy or
+# the dropout generator's restore is wrong
+REMAT_DROPOUT = 0.1
+REMAT_GRAD_REL_L2_TOL = 1e-3
+# (f): timed runs per (variant, query tile) of the profiling script's sweep
+ABLATION_RUNS = 10
 
 KERNELS = {
     "resunit": dict(source="edm_tts_tpu_torch/csrc/resunit.cu",
@@ -121,6 +150,8 @@ KERNELS = {
                           replaces="edm_tts_tpu/ops/pallas_attention.py:234"),
     "int8_dense": dict(source="edm_tts_tpu_torch/csrc/qdense.cu",
                        replaces="edm_tts_tpu/ops/qdense.py:102"),
+    "attn_variants": dict(source="edm_tts_tpu_torch/csrc/attn_variants.cu",
+                          replaces="scripts/profile_attn_variants.py:55"),
 }
 # K3 with its LSE and K4: the s2a training micro-batch, a masked ragged batch
 # and the masked t2s canvas (label: B, T, H, D, key lengths or None)
@@ -129,8 +160,8 @@ ATTENTION_TRAIN_CASES = (
     ("ragged B4 T701 H8 D24 mask", (4, 701, 8, 24, (701, 650, 512, 97))),
     ("t2s canvas B4 T1382 H8 D24 mask", (4, 1382, 8, 24, (1382, 1210, 905, 488))),
 )
-# --source-faults: faults planted in copies of K3's and K4's CUDA sources,
-# each of which the K3-with-LSE/K4 cases must reject. name: (source in
+# --source-faults: faults planted in copies of K3's, K4's and K6's CUDA
+# sources, each of which the --attention-kernels cases must reject. name: (source in
 # edm_tts_tpu_torch/csrc, [(text, replacement), ...]); every occurrence is
 # replaced
 SOURCE_FAULTS = {
@@ -146,6 +177,11 @@ SOURCE_FAULTS = {
     "last query tile skipped": ("attention_bwd.cu", [
         ("for (int q0 = 0; q0 < Tq; q0 += kBT)", "for (int q0 = 0; q0 + kBT < Tq; q0 += kBT)")]),
     "LSE without log(l)": ("attention.cu", [("mw[lane] + logf(lw[lane])", "mw[lane]")]),
+    "K6 online rescale dropped": ("attn_variants.cu", [
+        ("const float alpha[2] = {ex2_f32(m[0] - mx[0]), ex2_f32(m[1] - mx[1])};",
+         "const float alpha[2] = {1.0f, 1.0f};")]),
+    "K6 noexp without m * colsum(V)": ("attn_variants.cu", [
+        ("if (VARIANT == kNoExp) x -= num_shift[r] * vsum_s[d];", "")]),
 }
 
 
@@ -157,38 +193,14 @@ def fail(msg: str) -> None:
     raise CheckFailed(f"chip_smoke: FAIL: {msg}")
 
 
-def median_ms(torch, fn, n: int = 20) -> float:
-    """Median device time of ``fn`` over ``n`` runs. Each run is queued
-    behind a ~1 ms sleep on the card, so the host's time to launch it (tens
-    of microseconds through Python) is not counted."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(n):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(2_000_000)  # clock cycles
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 def rel_l2(torch, out, ref) -> float:
     return ((out.float() - ref.float()).norm() / ref.float().norm()).item()
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    """The least time (ms) the card could take, and what sets it."""
-    ops_ms, bytes_ms = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
-
-
 def kernel_phase(torch, ops, attention_train_only: bool = False) -> dict:
     """Each kernel against its plain version at the slices' shapes; with
-    ``attention_train_only`` only K3 with its LSE and K4.
+    ``attention_train_only`` only K3 with its LSE, K4 and K6's ragged cases
+    (what ``--source-faults`` needs).
 
     Alphas are drawn U(0.5, 2), biases N(0, 0.5) and the int8 weights'
     column magnitudes U(0.5, 2), so that every term of the arithmetic moves
@@ -196,7 +208,11 @@ def kernel_phase(torch, ops, attention_train_only: bool = False) -> dict:
     """
     import torch.nn.functional as F
 
+    from edm_tts_tpu_torch.ops.attn_variants import BLOCK_Q, VARIANTS, attn_variant_reference
     from edm_tts_tpu_torch.ops.decoder_block import phase_weights
+    from edm_tts_tpu_torch.profile_attn_variants import SHAPE
+    from edm_tts_tpu_torch.profile_attn_variants import work as variant_work
+    from edm_tts_tpu_torch.utils.devtime import bound, median_ms
 
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -245,12 +261,12 @@ def kernel_phase(torch, ops, attention_train_only: bool = False) -> dict:
         rel = max(rel_l2(torch, o, r) for o, r in zip(out, ref))
         fault_rel = {f: max(rel_l2(torch, o, r) for o, r in zip(as_tuple(fn()), ref))
                      for f, fn in faults.items()}
-        ms, plain_ms = median_ms(torch, kernel), median_ms(torch, plain)
+        ms, plain_ms = median_ms(kernel), median_ms(plain)
         library_ms = None
         if library is not None:
-            library_ms = median_ms(torch, library[1])
+            library_ms = median_ms(library[1])
             if len(library) == 3:
-                library_ms -= median_ms(torch, library[2])
+                library_ms -= median_ms(library[2])
         bound_ms, bound_by = bound(*work)
         print(f"kernel {name} {label}: rel_l2 {rel:.6g} (tol {REL_L2_TOL:.6g}) max_abs_err "
               f"{err:.6g} (tol {max_abs_tol:.4g}) planted faults rel_l2 "
@@ -316,9 +332,12 @@ def kernel_phase(torch, ops, attention_train_only: bool = False) -> dict:
                 return torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), gt)
 
         # SDPA on inputs that require grad keeps its LSE for the backward
+        # one exponential per (query, valid key, head): K3's, and K4's to
+        # rebuild p (once, as one kernel doing both of K4's parts would)
+        exps = sum(n_keys) * t * h
         compare("attention", f"{label} with LSE",
                 lambda: ops.flash_mha(q, k, v, mask=mask, return_lse=True), plain_lse, faults,
-                (4 * key_work, 4 * elems * 2 + b * t + b * h * t * 4),
+                (4 * key_work, 4 * elems * 2 + b * t + b * h * t * 4, exps),
                 ("scaled_dot_product_attention, inputs requiring grad", sdpa_fwd))
         lse_err = (lse - lse_ref).abs().max().item()
         print(f"kernel attention {label} with LSE: LSE max abs err {lse_err:.4g} "
@@ -340,7 +359,7 @@ def kernel_phase(torch, ops, attention_train_only: bool = False) -> dict:
             faults["mask ignored"] = lambda: bwd_plain(mask=None)
         compare("attention_bwd", label,
                 lambda: ops.flash_mha_bwd(q, k, v, mask, o, lse, g), bwd_plain, faults,
-                (10 * key_work, 8 * elems * 2 + b * h * t * 4 + b * t),
+                (10 * key_work, 8 * elems * 2 + b * h * t * 4 + b * t, exps),
                 ("scaled_dot_product_attention backward", sdpa_fwd_bwd, sdpa_fwd))
         if mask is not None:  # keys at padded positions get exactly zero dk and dv
             _, dk, dv = ops.flash_mha_bwd(q, k, v, mask, o, lse, g)
@@ -348,6 +367,39 @@ def kernel_phase(torch, ops, attention_train_only: bool = False) -> dict:
                 fail(f"{label}: K4 wrote non-zero dk or dv at padded keys")
             print(f"kernel attention_bwd {label}: dk and dv exactly 0 at "
                   f"{int((~mask).sum())} padded keys", flush=True)
+    # K6: each variant at each query tile, at the ablation's shape (B32
+    # T1408 H16 D24; not under --attention-kernels) and at two ragged ones.
+    # The library call is SDPA (the full softmax) on the (B, H, T, D) layout.
+    k6_shapes = [(2, 701, 8, 24), (2, 701, 8, 64)]
+    if not attention_train_only:
+        k6_shapes.insert(0, SHAPE)
+    for b, t, h, d in k6_shapes:
+        q, k, v = (normal(b, t, h, d).to(bf16) for _ in range(3))
+        last = (t - 1) // 64 * 64  # the first key of the last tile
+        k_cut, v_cut = k[:, :last].contiguous(), v[:, :last].contiguous()
+        qt, kt, vt = (z.transpose(1, 2).contiguous() for z in (q, k, v))
+
+        def noexp_without_max():
+            s = torch.einsum("bihd,bjhd->bhij", q.float(), k.float()) * d ** -0.5
+            o = torch.einsum("bhij,bjhd->bihd", s.to(bf16).float(), v.float())
+            return (o / (s.sum(-1) + 1e6).transpose(1, 2)[..., None]).to(bf16)
+
+        for variant in VARIANTS:
+            faults = {"scale dropped": lambda: attn_variant_reference(
+                          q * d ** 0.5, k, v, variant=variant),
+                      "last key tile skipped": lambda: attn_variant_reference(
+                          q, k_cut, v_cut, variant=variant)}
+            if variant == "noexp":
+                # the max left out of both terms (out of the denominator
+                # alone it moves the output by ~0.5 %, under the limit)
+                faults["row max left out"] = noexp_without_max
+            for block_q in BLOCK_Q:
+                compare("attn_variants", f"B{b} T{t} H{h} D{d} {variant} block_q {block_q}",
+                        lambda: ops.attn_variant(q, k, v, variant=variant, block_q=block_q),
+                        lambda: attn_variant_reference(q, k, v, variant=variant), faults,
+                        variant_work(variant, b, t, h, d),
+                        ("scaled_dot_product_attention",
+                         lambda: F.scaled_dot_product_attention(qt, kt, vt)))
     if attention_train_only:
         return cases
 
@@ -416,7 +468,7 @@ def kernel_phase(torch, ops, attention_train_only: bool = False) -> dict:
         n_keys = int(valid.sum())
         compare("attention", label, lambda: ops.flash_mha(q, k, v, mask=mask),
                 lambda: ops.mha_reference(q, k, v, mask=mask), faults,
-                (4 * h * t * n_keys * d, 4 * t * h * d * 2 + t),
+                (4 * h * t * n_keys * d, 4 * t * h * d * 2 + t, h * t * n_keys),
                 ("scaled_dot_product_attention", lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, attn_mask=sdpa_mask)))
     # K5: every int8 linear of the served path. s2a at M = 150 + 512 (a
@@ -466,7 +518,7 @@ def kernel_phase(torch, ops, attention_train_only: bool = False) -> dict:
                  "tail M rows zeroed": tail_zeroed},
                 (2 * m * kdim * n, 2 * m * kdim + kdim * n + 2 * m * n + 4 * n), library)
         # a second yardstick: the bf16 product on the dequantized weight
-        cases["int8_dense"][-1]["matmul_bf16_ms"] = median_ms(torch, lambda: torch.matmul(x, w_deq))
+        cases["int8_dense"][-1]["matmul_bf16_ms"] = median_ms(lambda: torch.matmul(x, w_deq))
         print(f"kernel int8_dense {label} M{m} K{kdim} N{n}: bf16 matmul on the dequantized "
               f"weight ms {cases['int8_dense'][-1]['matmul_bf16_ms']:.4f}", flush=True)
     return cases
@@ -545,8 +597,8 @@ def served_path(torch, t2s, s2a, dev, smi: str) -> dict:
                 + (0 if has_gt else lp.depth * block_int8_sites(lp))
                 + s2a_passes * block_int8_sites(enc) + fine)
         attention = (main.depth * PRED_ITERS + (0 if has_gt else lp.depth) + s2a_passes)
-        return {"resunit": 3 * len(s2a_cfg.codec.decoder_rates), "decoder_block": 0,
-                "attention": attention, "attention_bwd": 0, "int8_dense": int8}
+        return no_launches(resunit=3 * len(s2a_cfg.codec.decoder_rates), attention=attention,
+                           int8_dense=int8)
 
     calls = []  # (rows, engine wall s, audio s) of each engine call the server makes
     synthesize = engine.synthesize
@@ -658,29 +710,101 @@ def served_path(torch, t2s, s2a, dev, smi: str) -> dict:
     return counts["concurrent"]
 
 
+def write_s2a_shards(path: str) -> None:
+    """TRAIN_ITEMS seeded items of 800-1000 frames, 12 x 1024 codes."""
+    import numpy as np
+
+    from edm_tts_tpu_torch.data.token_shards import TokenShardWriter
+
+    rng = np.random.default_rng(SEED)
+    writer = TokenShardWriter(path, items_per_shard=16)
+    for i in range(TRAIN_ITEMS):
+        t = int(rng.integers(800, 1001))
+        writer.add(f"utt{i}", rng.integers(0, 1024, (12, t)), rng.integers(0, 1024, t))
+    writer.close()
+
+
+def attention_gradient_check(torch, ops, model, loss, label: str) -> dict:
+    """``loss(model)``'s loss and flattened trainable gradient through K3+K4
+    against the same with the Conformer's attention replaced by the plain
+    version for one call (and with a planted K4 fault: dk scaled by
+    sqrt(D)); returns the launches of the kernel run."""
+    import edm_tts_tpu_torch.models.conformer.conformer as conformer_mod
+    import edm_tts_tpu_torch.ops.attention as attention_mod
+    from edm_tts_tpu_torch.kernels import launches, reset_launches
+
+    def loss_and_grad():
+        model.zero_grad(set_to_none=True)
+        with torch.enable_grad():
+            value = loss(model)
+            value.backward()
+        grad = torch.cat([p.grad.flatten() for p in model.parameters() if p.requires_grad])
+        model.zero_grad(set_to_none=True)
+        return value.item(), grad
+
+    reset_launches()
+    loss_k, grad_k = loss_and_grad()
+    torch.cuda.synchronize()
+    counts = dict(launches)
+    true_mha = conformer_mod.mha
+
+    def plain_mha(q, k, v, *, mask=None, implementation="auto"):
+        return ops.mha_reference(q, k, v, mask=mask)
+
+    conformer_mod.mha = plain_mha
+    reset_launches()
+    try:
+        loss_p, grad_p = loss_and_grad()
+    finally:
+        conformer_mod.mha = true_mha
+    if launches["attention"] or launches["attention_bwd"]:
+        fail(f"{label}: the plain-attention step launched kernels: {dict(launches)}")
+    true_bwd = attention_mod.flash_mha_bwd
+
+    def dk_scaled_wrong(q, k, v, mask, o, lse, g):
+        dq, dk, dv = true_bwd(q, k, v, mask, o, lse, g)
+        return dq, dk * q.shape[-1] ** 0.5, dv
+
+    attention_mod.flash_mha_bwd = dk_scaled_wrong
+    try:
+        _, grad_fault = loss_and_grad()
+    finally:
+        attention_mod.flash_mha_bwd = true_bwd
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    grad_rel = rel_l2(torch, grad_k, grad_p)
+    fault_rel = rel_l2(torch, grad_fault, grad_p)
+    del grad_k, grad_p, grad_fault
+    print(f"{label}, K3+K4 vs plain attention: loss {loss_k:.6f} vs {loss_p:.6f} (relative "
+          f"{loss_rel:.3g}, tol {TRAIN_LOSS_REL_TOL}), gradient relative l2 {grad_rel:.4g} (tol "
+          f"{TRAIN_GRAD_REL_L2_TOL}); planted K4 fault (dk scaled by sqrt(D)) {fault_rel:.4g}; "
+          f"launches {counts}", flush=True)
+    if not (loss_rel <= TRAIN_LOSS_REL_TOL and grad_rel <= TRAIN_GRAD_REL_L2_TOL):
+        fail(f"{label}: the gradient through the kernels differs from the plain attention: "
+             f"loss {loss_rel}, gradient {grad_rel}")
+    if not fault_rel > TRAIN_GRAD_REL_L2_TOL:
+        fail(f"{label}: the gradient limit would let a wrong dk pass ({fault_rel})")
+    return counts
+
+
+def no_launches(**counts) -> dict:
+    """A launch-count dict of every kernel: 0 unless given."""
+    return {name: counts.get(name, 0) for name in KERNELS}
+
+
 def training_path(torch, ops, dev, smi: str) -> dict:
     """(d): the s2a recipe at full width through ``run_s2a.main_from_dict``."""
     import tempfile
 
     import numpy as np
 
-    import edm_tts_tpu_torch.models.conformer.conformer as conformer_mod
-    import edm_tts_tpu_torch.ops.attention as attention_mod
-    from edm_tts_tpu_torch.data.token_shards import TokenShardWriter
     from edm_tts_tpu_torch.kernels import launches, reset_launches
     from edm_tts_tpu_torch.profile_synthesis import s2a_train_recipe
     from edm_tts_tpu_torch.train import run_s2a
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_s2a_")
     try:
-        # token shards: 48 items of 800-1000 frames, 12 x 1024 codes
-        rng = np.random.default_rng(SEED)
         shards = os.path.join(tmp, "shards")
-        writer = TokenShardWriter(shards, items_per_shard=16)
-        for i in range(TRAIN_ITEMS):
-            t = int(rng.integers(800, 1001))
-            writer.add(f"utt{i}", rng.integers(0, 1024, (12, t)), rng.integers(0, 1024, t))
-        writer.close()
+        write_s2a_shards(shards)
         raw = s2a_train_recipe(os.path.join(tmp, "out"), shards, SEED, TRAIN_STEPS)
         micro = raw["per_device_train_batch_size"] // raw["micro_batches"]
 
@@ -696,60 +820,13 @@ def training_path(torch, ops, dev, smi: str) -> dict:
         mask = ops.cosine_schedule_mask(torch.Generator(device=dev).manual_seed(SEED),
                                         micro, frames, device=dev)
 
-        def loss_and_grad(m):
-            m.zero_grad(set_to_none=True)
-            with torch.enable_grad():
-                with torch.autocast("cuda", dtype=torch.bfloat16):
-                    loss = m.forward_train(ac, sem, mask_override=mask, train=False)["loss"]
-                loss.backward()
-            grad = torch.cat([p.grad.flatten() for p in m.parameters() if p.requires_grad])
-            m.zero_grad(set_to_none=True)
-            return loss.item(), grad
+        def loss(m):
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                return m.forward_train(ac, sem, mask_override=mask, train=False)["loss"]
 
-        reset_launches()
-        loss_k, grad_k = loss_and_grad(model)
-        torch.cuda.synchronize()
-        check_counts = dict(launches)
-        # the same step with the Conformer's attention through the plain
-        # version, autograd differentiating it: for this one call only
-        true_mha = conformer_mod.mha
-
-        def plain_mha(q, k, v, *, mask=None, implementation="auto"):
-            return ops.mha_reference(q, k, v, mask=mask)
-
-        conformer_mod.mha = plain_mha
-        reset_launches()
-        try:
-            loss_p, grad_p = loss_and_grad(model)
-        finally:
-            conformer_mod.mha = true_mha
-        if launches["attention"] or launches["attention_bwd"]:
-            fail(f"the plain-attention step launched kernels: {dict(launches)}")
-        true_bwd = attention_mod.flash_mha_bwd
-
-        def dk_scaled_wrong(q, k, v, mask, o, lse, g):
-            dq, dk, dv = true_bwd(q, k, v, mask, o, lse, g)
-            return dq, dk * q.shape[-1] ** 0.5, dv
-
-        attention_mod.flash_mha_bwd = dk_scaled_wrong
-        try:
-            _, grad_fault = loss_and_grad(model)
-        finally:
-            attention_mod.flash_mha_bwd = true_bwd
+        check_counts = attention_gradient_check(
+            torch, ops, model, loss, f"train (d) one micro-batch B{micro} x {frames}")
         del model
-        loss_rel = abs(loss_k - loss_p) / abs(loss_p)
-        grad_rel = rel_l2(torch, grad_k, grad_p)
-        fault_rel = rel_l2(torch, grad_fault, grad_p)
-        del grad_k, grad_p, grad_fault
-        print(f"train (d) one micro-batch B{micro} x {frames}, K3+K4 vs plain attention: loss "
-              f"{loss_k:.6f} vs {loss_p:.6f} (relative {loss_rel:.3g}, tol {TRAIN_LOSS_REL_TOL}), "
-              f"gradient relative l2 {grad_rel:.4g} (tol {TRAIN_GRAD_REL_L2_TOL}); planted K4 "
-              f"fault (dk scaled by sqrt(D)) {fault_rel:.4g}; launches {check_counts}", flush=True)
-        if not (loss_rel <= TRAIN_LOSS_REL_TOL and grad_rel <= TRAIN_GRAD_REL_L2_TOL):
-            fail(f"training gradient through the kernels differs from the plain attention: "
-                 f"loss {loss_rel}, gradient {grad_rel}")
-        if not fault_rel > TRAIN_GRAD_REL_L2_TOL:
-            fail(f"the gradient limit would let a wrong dk pass ({fault_rel})")
         depth = cfg.encoder_num_layers
         if check_counts["attention"] != depth or check_counts["attention_bwd"] != depth:
             fail(f"one micro-batch launched {check_counts}, want {depth} of K3 and of K4")
@@ -771,8 +848,8 @@ def training_path(torch, ops, dev, smi: str) -> dict:
         step_s = [1.0 / r["train/steps_per_sec"] for r in steps]
         med = statistics.median(step_s[1:])  # the first step warms up
         n_micro = raw["micro_batches"]
-        want = {"resunit": 0, "decoder_block": 0, "attention": depth * n_micro * TRAIN_STEPS,
-                "attention_bwd": depth * n_micro * TRAIN_STEPS, "int8_dense": 0}
+        want = no_launches(attention=depth * n_micro * TRAIN_STEPS,
+                           attention_bwd=depth * n_micro * TRAIN_STEPS)
         save = trainer.last_save
         ckpt_bytes = sum(os.path.getsize(os.path.join(r, f))
                          for r, _, fs in os.walk(save["path"]) for f in fs)
@@ -806,8 +883,219 @@ def training_path(torch, ops, dev, smi: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def t2s_training_path(torch, ops, dev, smi: str) -> dict:
+    """(e): the t2s recipe at full width through ``run_t2s.main_from_dict``."""
+    import tempfile
+
+    import numpy as np
+
+    from edm_tts_tpu_torch.data.token_shards import TokenShardWriter
+    from edm_tts_tpu_torch.kernels import launches, reset_launches
+    from edm_tts_tpu_torch.profile_synthesis import t2s_train_recipe
+    from edm_tts_tpu_torch.train import run_t2s
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_t2s_")
+    try:
+        # T2S_TRAIN_ITEMS items, more than length_bucketed's 2048-item pool:
+        # semantic lengths U[21, 1249], text bytes 20-40 % of them
+        rng = np.random.default_rng(SEED)
+        shards = os.path.join(tmp, "shards")
+        writer = TokenShardWriter(shards, items_per_shard=512)
+        for i in range(T2S_TRAIN_ITEMS):
+            t = int(rng.integers(21, 1250))
+            n_text = max(1, int(t * rng.uniform(0.2, 0.4)))
+            writer.add(f"utt{i}", np.zeros((1, t), np.int16), rng.integers(0, 1024, t),
+                       text_bytes=rng.integers(0, 256, n_text).tolist())
+        writer.close()
+        raw = t2s_train_recipe(os.path.join(tmp, "out"), shards, SEED, TRAIN_STEPS)
+        model = run_t2s.build_model(raw, dev)
+        cfg = model.cfg
+        depth = cfg.main_encoder_num_layers + cfg.length_predictor_num_layers
+        before = {k: v.detach().to("cpu", copy=True) for k, v in model.state_dict().items()}
+
+        # one batch of 8 (the plain attention keeps B x H x T x T scores),
+        # the longest canvas of the iterator's first 8: K3 + K4 against the
+        # plain attention
+        batch = max(itertools.islice(run_t2s.t2s_batch_iterator(shards, 8, SEED), 8),
+                    key=lambda b: b["input_ids"].shape[1])
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        mask = ops.cosine_schedule_mask(torch.Generator(device=dev).manual_seed(SEED),
+                                        *batch["input_ids"].shape, device=dev)
+
+        def loss(m):
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                return m.forward_train(*(batch[k] for k in run_t2s.BATCH_KEYS),
+                                       mask_override=mask, train=False)["loss"]
+
+        check_counts = attention_gradient_check(
+            torch, ops, model, loss, f"train (e) one batch B8 x {batch['input_ids'].shape[1]}")
+        del model
+        if check_counts["attention"] != depth or check_counts["attention_bwd"] != depth:
+            fail(f"one t2s batch launched {check_counts}, want {depth} of K3 and of K4")
+
+        # the main path: 6 optimizer steps of B32; the iterator is seeded, so
+        # the same iterator gives the canvases the trainer takes
+        shapes = [(b["input_ids"].shape, b["text_ids"].shape[1] + 1) for b in itertools.islice(
+            run_t2s.t2s_batch_iterator(shards, raw["per_device_train_batch_size"], SEED),
+            TRAIN_STEPS)]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        trainer = run_t2s.main_from_dict(raw, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(launches)
+        peak = torch.cuda.max_memory_allocated()
+        steps = [r for r in trainer.history if "train/loss" in r]
+        losses = [r["train/loss"] for r in steps]
+        norms = [r["train/grad_norm"] for r in steps]
+        step_s = [1.0 / r["train/steps_per_sec"] for r in steps]
+        tokens = [shape[0] * shape[1] for shape, _ in shapes]
+        med = statistics.median(step_s[1:])  # the first step warms up
+        rate = sum(tokens[1:]) / sum(step_s[1:])
+        want = no_launches(attention=depth * TRAIN_STEPS, attention_bwd=depth * TRAIN_STEPS)
+        after = trainer.model.state_dict()
+        trainable = [n for n, p in trainer.model.named_parameters() if p.requires_grad]
+        still = [n for n in trainable if torch.equal(before[n], after[n].cpu())]
+        canvases = sorted({shape[1] for shape, _ in shapes})
+        print(f"train (e) {len(steps)} steps of B{raw['per_device_train_batch_size']}, canvases "
+              f"(main x length predictor) {[(s[1], lp) for s, lp in shapes]}, "
+              f"{len(trainable)} trainable tensors "
+              f"({sum(p.numel() for p in trainer.optimizer.params) / 1e6:.1f}M): losses "
+              f"{[round(x, 4) for x in losses]} (CE {[round(r['train/ce_loss'], 4) for r in steps]},"
+              f" length {[round(r['train/length_loss'], 4) for r in steps]}) grad norms "
+              f"{[round(x, 4) for x in norms]} lr {[r['train/lr'] for r in steps]}", flush=True)
+        print(f"train (e) step seconds {[round(x, 4) for x in step_s]}: median {med:.4f} s "
+              f"after the first, {rate:.1f} canvas tokens per s (steps 2-{TRAIN_STEPS}); wall "
+              f"{wall:.2f} s with set-up, checkpoint and export; peak device memory "
+              f"{peak / 2 ** 30:.2f} GiB (max_memory_allocated); launches {counts} expected "
+              f"{want} ({smi})", flush=True)
+        if not all(np.isfinite(losses + norms)) or len(steps) != TRAIN_STEPS:
+            fail(f"t2s training: {len(steps)} steps, losses {losses}, grad norms {norms}")
+        if still:
+            fail(f"t2s training left trainable tensors unchanged: {still[:5]}")
+        if counts != want:
+            fail(f"t2s training launches {counts} != expected {want}")
+        if len(canvases) < 2 or any(s[1] % 64 or (lp - 1) % 64 for s, lp in shapes):
+            fail(f"t2s canvases {shapes}: want at least two lengths, multiples of 64 (+1)")
+        return counts
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def remat_path(torch, dev, smi: str) -> dict:
+    """Gradient checkpointing on the full-width s2a: one B8 x 768 micro-batch
+    with dropout 0.1 under each policy against no remat, then 2 steps of
+    the recipe as B32 in one micro-batch under "mha"."""
+    import dataclasses
+    import tempfile
+
+    from edm_tts_tpu_torch.kernels import launches, reset_launches
+    from edm_tts_tpu_torch.profile_synthesis import s2a_train_recipe
+    from edm_tts_tpu_torch.train import run_s2a
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_remat_")
+    try:
+        shards = os.path.join(tmp, "shards")
+        write_s2a_shards(shards)
+        raw = s2a_train_recipe(os.path.join(tmp, "out"), shards, SEED, 2)
+        raw["extra_model_params"]["encoder_config"].update(
+            ff_dropout=REMAT_DROPOUT, conv_dropout=REMAT_DROPOUT)
+        model = run_s2a.build_model(raw, dev)
+        cfg = model.cfg
+        frames = int(raw["training_segment_length"] * cfg.codec.sample_rate / cfg.codec.hop_length)
+        micro = raw["per_device_train_batch_size"] // raw["micro_batches"]
+        batch = next(run_s2a.code_batch_iterator(shards, frames, micro, SEED))
+        ac, sem = (torch.as_tensor(batch[k], device=dev)
+                   for k in ("acoustic_tokens", "semantic_tokens"))
+        depth = cfg.encoder_num_layers
+        ref = None
+        for policy in (None, "full", "mha", "dots"):
+            model.cfg = dataclasses.replace(cfg, gradient_checkpointing=policy is not None,
+                                            remat_policy=policy or cfg.remat_policy)
+            model.zero_grad(set_to_none=True)
+            torch.cuda.empty_cache()
+            static = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+            with torch.enable_grad():
+                with torch.autocast("cuda", dtype=torch.bfloat16):
+                    loss = model.forward_train(ac, sem, generator=gen)["loss"]
+                loss.backward()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            counts = dict(launches)
+            grad = torch.cat([p.grad.flatten() for p in model.parameters() if p.requires_grad])
+            model.zero_grad(set_to_none=True)
+            rel = 0.0 if ref is None else rel_l2(torch, grad, ref)
+            if ref is None:
+                ref = grad
+            want = no_launches(attention=depth * (2 if policy == "full" else 1),
+                               attention_bwd=depth)
+            print(f"remat {policy or 'none'}: one micro-batch B{micro} x {frames}, dropout "
+                  f"{REMAT_DROPOUT}: loss {loss.item():.6f}, gradient relative l2 to no remat "
+                  f"{rel:.3g} (tol {REMAT_GRAD_REL_L2_TOL}); peak device memory "
+                  f"{peak / 2 ** 30:.2f} GiB, {(peak - static) / 2 ** 30:.2f} GiB above the "
+                  f"weights (max_memory_allocated); launches {counts} expected {want}", flush=True)
+            if not rel <= REMAT_GRAD_REL_L2_TOL:
+                fail(f"remat {policy}: gradient differs from no remat by {rel}")
+            if counts != want:
+                fail(f"remat {policy}: launches {counts} != expected {want}")
+        del model, ref, grad
+        torch.cuda.empty_cache()
+
+        # the recipe's B32 in one micro-batch under "mha"
+        raw = s2a_train_recipe(os.path.join(tmp, "out_b32"), shards, SEED, 2)
+        raw.update(micro_batches=1)
+        raw["extra_model_params"].update(gradient_checkpointing=True, remat_policy="mha")
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        trainer = run_s2a.main_from_dict(raw, device=dev)
+        torch.cuda.synchronize()
+        counts = dict(launches)
+        peak = torch.cuda.max_memory_allocated()
+        steps = [r for r in trainer.history if "train/loss" in r]
+        step_s = [1.0 / r["train/steps_per_sec"] for r in steps]
+        want = no_launches(attention=2 * depth, attention_bwd=2 * depth)
+        print(f"remat mha: 2 steps of B32 x {frames} in one micro-batch: losses "
+              f"{[round(r['train/loss'], 4) for r in steps]}, step seconds "
+              f"{[round(x, 4) for x in step_s]} ({32 * frames / step_s[-1]:.1f} frames per s "
+              f"at the second), peak device memory {peak / 2 ** 30:.2f} GiB "
+              f"(max_memory_allocated); launches {counts} expected {want} ({smi})", flush=True)
+        if len(steps) != 2 or not all(math.isfinite(r["train/loss"]) for r in steps):
+            fail(f"remat mha B32: {steps}")
+        if counts != want:
+            fail(f"remat mha B32: launches {counts} != expected {want}")
+        return counts
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def ablation_path(torch, smi: str) -> tuple[dict, list]:
+    """(f): K6 through the profiling script's sweep at its shape."""
+    from edm_tts_tpu_torch.kernels import launches, reset_launches
+    from edm_tts_tpu_torch.profile_attn_variants import inputs, sweep
+
+    q, k, v = inputs(seed=SEED)
+    reset_launches()
+    rows = sweep(q, k, v, n=ABLATION_RUNS)
+    torch.cuda.synchronize()
+    counts = dict(launches)
+    want = no_launches(attn_variants=len(rows) * (ABLATION_RUNS + 1))
+    for row in rows:
+        print(f"ablation (f) B{q.shape[0]} T{q.shape[1]} H{q.shape[2]} D{q.shape[3]} "
+              f"{row['variant']} block_q {row['block_q']}: {row['ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}) ({smi})", flush=True)
+    print(f"ablation (f): launches {counts} expected {want}", flush=True)
+    if counts != want:
+        fail(f"ablation launches {counts} != expected {want}")
+    return counts, rows
+
+
 def source_faults() -> int:
-    """``--source-faults``: the K3-with-LSE/K4 cases of the kernel phase on
+    """``--source-faults``: the ``--attention-kernels`` cases of the kernel phase on
     the sources as they are (which must pass), then once for each of
     SOURCE_FAULTS on a copy of the package and of this script in a temporary
     directory with that one edit, built there; each must be rejected."""
@@ -819,7 +1107,7 @@ def source_faults() -> int:
     child = [sys.executable, "chip_smoke.py", "--attention-kernels"]
     print("source faults: the sources as they are (must pass)", flush=True)
     if subprocess.run(child, cwd=root, timeout=600).returncode != 0:
-        fail("the K3-with-LSE/K4 cases reject the sources as they are")
+        fail("the --attention-kernels cases reject the sources as they are")
     passed = []
     for name, (source, edits) in SOURCE_FAULTS.items():
         with tempfile.TemporaryDirectory(prefix="chip_smoke_fault_") as tmp:
@@ -843,7 +1131,7 @@ def source_faults() -> int:
     print(f"source faults rejected: {len(SOURCE_FAULTS) - len(passed)} of {len(SOURCE_FAULTS)}",
           flush=True)
     if passed:
-        fail(f"source faults passed the K3-with-LSE/K4 cases: {passed}")
+        fail(f"source faults passed the --attention-kernels cases: {passed}")
     return 0
 
 
@@ -855,11 +1143,11 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     mode = parser.add_mutually_exclusive_group()
     mode.add_argument("--source-faults", action="store_true",
-                      help="plant SOURCE_FAULTS in copies of K3's and K4's sources; "
-                           "each must be rejected")
+                      help="plant SOURCE_FAULTS in copies of K3's, K4's and K6's "
+                           "sources; each must be rejected")
     mode.add_argument("--attention-kernels", action="store_true",
-                      help="only the K3-with-LSE/K4 cases of the kernel phase; exit 3 when "
-                           "one is outside its limits")
+                      help="only the K3-with-LSE/K4 and ragged K6 cases of the kernel "
+                           "phase; exit 3 when one is outside its limits")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False; this smoke run needs an NVIDIA GPU")
@@ -938,8 +1226,8 @@ def main() -> int:
         codec = s2a_cfg.codec
         fused = sum(1 for i, s in enumerate(codec.decoder_rates)
                     if s % 2 == 0 and 40 % s == 0 and codec.decoder_dim // 2 ** (i + 1) <= 192)
-        return {"resunit": 3 * len(codec.decoder_rates), "decoder_block": fused,
-                "attention": attention, "attention_bwd": 0, "int8_dense": 0}
+        return no_launches(resunit=3 * len(codec.decoder_rates), decoder_block=fused,
+                           attention=attention)
 
     def check(label: str, out, full_canvas: bool, counts: dict):
         audio = out["audio"]
@@ -1023,7 +1311,17 @@ def main() -> int:
     # 6. (d) s2a training at full width
     counts_d = training_path(torch, ops, dev, smi)
 
-    by_path = {"a": counts_a, "b": counts_b, "c": counts_c, "d": counts_d}
+    # 7. (e) t2s training at full width
+    counts_e = t2s_training_path(torch, ops, dev, smi)
+
+    # 8. gradient checkpointing on the full-width s2a
+    remat_path(torch, dev, smi)
+
+    # 9. (f) the attention-variant ablation through the profiling script
+    counts_f, _ = ablation_path(torch, smi)
+
+    by_path = {"a": counts_a, "b": counts_b, "c": counts_c, "d": counts_d, "e": counts_e,
+               "f": counts_f}
     record = {"kernels": []}
     for name in KERNELS:
         cs = cases[name]
@@ -1032,8 +1330,9 @@ def main() -> int:
         record["kernels"].append(dict(
             name=name, route="cuda", **KERNELS[name],
             # the path the kernel runs on: K2 is off on the served masked
-            # decode, K4 runs on the training path only
-            launches=next((c[name] for c in (counts_c, counts_a, counts_d) if c[name]), 0),
+            # decode, K4 runs on the training paths only, K6 on the ablation
+            launches=next((c[name] for c in (counts_c, counts_a, counts_d, counts_f)
+                           if c[name]), 0),
             launches_by_path={p: c[name] for p, c in by_path.items()},
             max_abs_err=max(c["max_abs_err"] for c in cs),
             rel_l2=max(c["rel_l2"] for c in cs),

@@ -1,12 +1,16 @@
-"""Batch collators (copy of ``collate_s2a`` in edm_tts_tpu/data/collators.py,
+"""Batch collators (copies of ``collate_s2a``, ``t2s_filter``,
+``collate_t2s`` and ``length_bucketed`` in edm_tts_tpu/data/collators.py,
 whose module imports the t2s config and with it jax; pinned equal by
-tests/test_torch_train_data.py)."""
+tests/test_torch_train_data.py and tests/test_torch_t2s_train.py)."""
 
 from __future__ import annotations
 
-from typing import Sequence
+import random
+from typing import Iterable, Iterator, Sequence
 
 import numpy as np
+
+from edm_tts_tpu_torch.models.t2s.config import SPECIAL_TOKENS
 
 
 def collate_s2a(examples: Sequence[dict]) -> dict:
@@ -19,3 +23,97 @@ def collate_s2a(examples: Sequence[dict]) -> dict:
             [e["semantic_tokens"] for e in examples]
         ).astype(np.int32),
     }
+
+
+def t2s_filter(example: dict, min_len: int = 20, max_len: int = 1250) -> bool:
+    """Reference filter_fn (run_text_to_semantic_training.py:195-204):
+    20 < semantic_len < 1250 and semantic_len > text_len."""
+    sem_len = len(example["semantic_tokens"])
+    text_len = len(example["transcription_bytes"])
+    return min_len < sem_len < max_len and sem_len > text_len
+
+
+def collate_t2s(
+    examples: Sequence[dict],
+    *,
+    num_special: int = 5,
+    text_vocab: int = 256,
+    pad_to_multiple: int = 64,
+) -> dict:
+    """Build the joint ``[TEXT] bytes [SEP] [SPEECH] semantic [SEP]``
+    batch with all masks the static-shape t2s forward needs.
+
+    Token shifts: text bytes + num_special; semantic + num_special +
+    text_vocab (reference collator :163-183).
+    """
+    tok = SPECIAL_TOKENS
+    seqs, speech_spans, texts = [], [], []
+    for ex in examples:
+        text_b = [b + num_special for b in ex["transcription_bytes"]]
+        sem = [int(s) + num_special + text_vocab for s in ex["semantic_tokens"]]
+        seq = (
+            [tok["text"]] + text_b + [tok["sep"]] + [tok["speech"]] + sem + [tok["sep"]]
+        )
+        speech_start = 1 + len(text_b) + 2  # first semantic position
+        seqs.append(seq)
+        speech_spans.append((speech_start, len(sem)))
+        texts.append(text_b)
+
+    def rnd_up(n):
+        return ((n + pad_to_multiple - 1) // pad_to_multiple) * pad_to_multiple
+
+    max_len = rnd_up(max(len(s) for s in seqs))
+    max_text = rnd_up(max(len(t) for t in texts))
+    b = len(seqs)
+    input_ids = np.full((b, max_len), tok["pad"], np.int32)
+    attention = np.zeros((b, max_len), bool)
+    speech_mask = np.zeros((b, max_len), bool)
+    text_ids = np.full((b, max_text), tok["pad"], np.int32)
+    text_attention = np.zeros((b, max_text), bool)
+    speech_lengths = np.zeros((b,), np.float32)
+    for i, (seq, (start, slen), text_b) in enumerate(
+        zip(seqs, speech_spans, texts)
+    ):
+        input_ids[i, : len(seq)] = seq
+        attention[i, : len(seq)] = True
+        speech_mask[i, start : start + slen] = True
+        text_ids[i, : len(text_b)] = text_b
+        text_attention[i, : len(text_b)] = True
+        speech_lengths[i] = slen
+    return {
+        "input_ids": input_ids,
+        "attention_mask": attention,
+        "speech_mask": speech_mask,
+        "text_ids": text_ids,
+        "text_attention_mask": text_attention,
+        "speech_lengths": speech_lengths,
+    }
+
+
+def length_bucketed(
+    examples: Iterable[dict],
+    batch_size: int,
+    *,
+    length_key=lambda ex: len(ex["semantic_tokens"]),
+    bucket_count: int = 8,
+    pool_size: int = 2048,
+    seed: int = 0,
+) -> Iterator[list]:
+    """Group similar-length examples (replaces HF ``group_by_length`` with a
+    jit-cache-friendly bucketing: at most ``bucket_count`` padded shapes)."""
+    rng = random.Random(seed)
+    pool: list[dict] = []
+    for ex in examples:
+        pool.append(ex)
+        if len(pool) >= pool_size:
+            pool.sort(key=length_key)
+            batches = [
+                pool[i : i + batch_size]
+                for i in range(0, len(pool) - batch_size + 1, batch_size)
+            ]
+            rng.shuffle(batches)
+            yield from batches
+            pool = pool[len(batches) * batch_size :]
+    while len(pool) >= batch_size:
+        yield pool[:batch_size]
+        pool = pool[batch_size:]

@@ -10,7 +10,8 @@ from __future__ import annotations
 
 import torch
 
-KERNELS = ("resunit", "decoder_block", "attention", "attention_bwd", "int8_dense")
+KERNELS = ("resunit", "decoder_block", "attention", "attention_bwd", "int8_dense",
+           "attn_variants")
 
 launches: dict[str, int] = {name: 0 for name in KERNELS}
 

@@ -103,8 +103,9 @@ def library() -> ctypes.CDLL:
     lib.edm_attention.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
     lib.edm_attention_bwd.argtypes = [ptr] * 10 + [i32] * 5 + [ptr]
     lib.edm_int8_dense.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
+    lib.edm_attn_variant.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]
     for fn in (lib.edm_resunit, lib.edm_tconv_phase, lib.edm_attention,
-               lib.edm_attention_bwd, lib.edm_int8_dense):
+               lib.edm_attention_bwd, lib.edm_int8_dense, lib.edm_attn_variant):
         fn.restype = ctypes.c_int
     return lib
 

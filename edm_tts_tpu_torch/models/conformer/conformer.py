@@ -25,15 +25,35 @@ Dropout (the JAX package's ``train=True``) is on when a forward is given a
 the JAX modules put it: after the Swish and after the second linear of each
 feed-forward, and at the end of the conv module. ``attn_dropout`` is
 carried in the config but not applied, as the JAX ``Attention`` does not.
+
+Gradient checkpointing (``remat``, the JAX ``nn.remat`` over each block)
+applies while autograd records, through ``apply_block``; ``remat_policy``
+says what a block keeps for its backward:
+
+- ``"full"``: its input only; the backward re-runs the whole block, K3
+  included;
+- ``"mha"``: its input and the attention's output and LSE (the outputs of
+  the ``edm_tts::flash_mha_lse`` operator); the backward re-runs the rest,
+  never K3;
+- ``"dots"``: that and every product without batch dimensions (``mm``,
+  ``addmm``: the linears and the pointwise convs).
+
+``torch.utils.checkpoint`` restores only the default generators' states
+before a recompute; ``remat_block`` also sets the explicit dropout
+generator back to where the block's forward started, so the recompute
+draws the forward's dropout masks, and then leaves it where the whole
+forward left it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from edm_tts_tpu_torch.ops import apply_rope, mha, rope_frequencies
 
@@ -55,7 +75,8 @@ class ConformerConfig:
     attn_implementation: str = "auto"
     # "none" | "int8": set by models/quantize.py, which swaps the linears
     quantize: str = "none"
-    # gradient checkpointing and its policy: not ported (the trainer raises)
+    # gradient checkpointing and its policy ("full", "mha" or "dots"; see
+    # the module docstring)
     remat: bool = False
     remat_policy: str = "dots"
 
@@ -215,6 +236,56 @@ class ConformerBlock(nn.Module):
         return self.post_norm(x)
 
 
+def _saved_ops(policy: str) -> list | None:
+    """The operators whose outputs a remat policy keeps (None: only the
+    block's input, ``"full"``)."""
+    if policy == "full":
+        return None
+    attention = torch.ops.edm_tts.flash_mha_lse.default
+    if policy == "mha":
+        return [attention]
+    if policy == "dots":
+        return [attention, torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
+    raise ValueError(f"unknown remat_policy: {policy!r}")
+
+
+def remat_block(block: nn.Module, x: torch.Tensor, policy: str, *,
+                dropout_generator: torch.Generator | None = None, **kwargs) -> torch.Tensor:
+    """``block(x, **kwargs)`` under ``torch.utils.checkpoint`` with the
+    policy's saved operators; the recompute in the backward starts the
+    dropout generator where the forward started it and puts it back after."""
+    saved = _saved_ops(policy)
+    gen = dropout_generator
+    start = None if gen is None else gen.get_state()
+    runs = 0
+
+    def run(x):
+        nonlocal runs
+        runs += 1
+        if runs == 1 or gen is None:
+            return block(x, dropout_generator=gen, **kwargs)
+        after = gen.get_state()
+        gen.set_state(start)
+        try:
+            return block(x, dropout_generator=gen, **kwargs)
+        finally:
+            gen.set_state(after)
+
+    if saved is None:
+        return checkpoint(run, x, use_reentrant=False)
+    return checkpoint(run, x, use_reentrant=False, context_fn=functools.partial(
+        create_selective_checkpoint_contexts, saved))
+
+
+def apply_block(block: nn.Module, x: torch.Tensor, cfg: ConformerConfig, **kwargs) -> torch.Tensor:
+    """One block, under ``remat_block`` when ``cfg.remat`` and autograd
+    records (the JAX package remats under ``train``; here the forward that
+    builds a graph is the one that can save memory)."""
+    if cfg.remat and torch.is_grad_enabled():
+        return remat_block(block, x, cfg.remat_policy, **kwargs)
+    return block(x, **kwargs)
+
+
 class Conformer(nn.Module):
     def __init__(self, cfg: ConformerConfig, *, device=None, dtype=None):
         super().__init__()
@@ -222,8 +293,12 @@ class Conformer(nn.Module):
         self.layers = nn.ModuleList(
             ConformerBlock(cfg, device=device, dtype=dtype) for _ in range(cfg.depth))
 
-    def forward(self, x, *, mask=None, conv_pad_mask=None):
+    def forward(self, x, *, mask=None, conv_pad_mask=None, dropout_generator=None):
+        """``dropout_generator`` turns dropout on (training) and draws its
+        masks; with ``cfg.remat`` each block is checkpointed while autograd
+        records."""
         rope = rope_frequencies(x.shape[-2], self.cfg.dim_head, device=x.device)
         for block in self.layers:
-            x = block(x, rope=rope, mask=mask, conv_pad_mask=conv_pad_mask)
+            x = apply_block(block, x, self.cfg, rope=rope, mask=mask,
+                            conv_pad_mask=conv_pad_mask, dropout_generator=dropout_generator)
         return x

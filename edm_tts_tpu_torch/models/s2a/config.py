@@ -1,7 +1,10 @@
 """Semantic->acoustic configuration (copy of edm_tts_tpu/models/s2a/config.py).
 
 Copied rather than imported: the JAX module pulls in flax. Pinned equal to
-the original by tests/test_torch_ops.py.
+the original by tests/test_torch_ops.py. One difference: ``encoder_config``
+carries ``remat_policy`` (the JAX one leaves the Conformer's default and
+its s2a model reads ``cfg.remat_policy`` itself), so the port's block loop
+remats under the s2a policy, ``"mha"`` by default.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ class S2AConfig:
             ff_dropout=self.encoder_ff_dropout,
             conv_dropout=self.encoder_conv_dropout,
             remat=self.gradient_checkpointing,
+            remat_policy=self.remat_policy,
             attn_implementation=self.attn_implementation,
             quantize=self.quantize,
         )

@@ -25,7 +25,7 @@ import torch
 from torch import nn
 
 from edm_tts_tpu_torch.models.codec.model import Codec
-from edm_tts_tpu_torch.models.conformer.conformer import LN_EPS, ConformerBlock
+from edm_tts_tpu_torch.models.conformer.conformer import LN_EPS, ConformerBlock, apply_block
 from edm_tts_tpu_torch.models.s2a.config import S2AConfig
 from edm_tts_tpu_torch.ops import (
     cosine_schedule_mask,
@@ -175,12 +175,14 @@ class InjectionConformer(nn.Module):
 
         ``teacher`` ``(n_inj, B, T, D)``: the codec features injected after
         each injection layer (the JAX ``_run_stack`` with
-        ``teacher_injections``)."""
+        ``teacher_injections``). With ``gradient_checkpointing`` each block
+        is checkpointed under ``remat_policy`` while autograd records."""
         cfg = self.cfg
         rope = rope_frequencies(x.shape[-2], cfg.encoder_config.dim_head, device=x.device)
         coarse: list[torch.Tensor] = []
         for i, block in enumerate(self.encoder.layers):
-            cur = block(x, rope=rope, dropout_generator=dropout_generator)
+            cur = apply_block(block, x, cfg.encoder_config, rope=rope,
+                              dropout_generator=dropout_generator)
             if i in cfg.injection_layers:
                 idx = cfg.injection_layers.index(i)
                 residual = coarse[-1] if (coarse and cfg.residual) else 0.0

@@ -8,6 +8,7 @@ from edm_tts_tpu_torch.ops.attention import (
     mha,
     mha_reference,
 )
+from edm_tts_tpu_torch.ops.attn_variants import attn_variant, attn_variant_reference
 from edm_tts_tpu_torch.ops.convolution import conv1d, conv_transpose1d, weight_norm
 from edm_tts_tpu_torch.ops.decoder_block import (
     decoder_block_reference,
@@ -34,7 +35,8 @@ from edm_tts_tpu_torch.ops.rope import apply_rope, rope_frequencies, rotate_half
 from edm_tts_tpu_torch.ops.snake import cos_fast, snake
 
 __all__ = [
-    "QLinear", "apply_rope", "attention_lse_reference", "conv1d",
+    "QLinear", "apply_rope", "attention_lse_reference", "attn_variant",
+    "attn_variant_reference", "conv1d",
     "conv_transpose1d", "cos_fast", "cosine_schedule_mask", "decoder_block_reference",
     "embed_take", "flash_mha", "flash_mha_bwd", "flash_mha_bwd_reference",
     "fused_decoder_block", "fused_residual_unit", "int8_dense", "int8_dense_reference",

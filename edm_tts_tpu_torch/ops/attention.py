@@ -17,6 +17,8 @@ versions alike.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from edm_tts_tpu_torch.kernels import launches
@@ -169,12 +171,22 @@ def flash_mha_bwd(q, k, v, mask, o, lse, g):
     return dq, dk, dv
 
 
+@torch.library.custom_op("edm_tts::flash_mha_lse", mutates_args=())
+def flash_mha_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  mask: Optional[torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor]:
+    """``flash_mha(..., return_lse=True)`` as one operator, so that a
+    selective-checkpoint policy can name it and keep its outputs: the
+    Conformer's ``"mha"`` and ``"dots"`` remat policies do, and the
+    recompute in the backward then does not launch K3 again."""
+    return flash_mha(q, k, v, mask=mask, return_lse=True)
+
+
 class FlashMHA(torch.autograd.Function):
     """K3 with the LSE forward, K4 backward (``flash_mha_diff``)."""
 
     @staticmethod
     def forward(ctx, q, k, v, mask):
-        o, lse = flash_mha(q, k, v, mask=mask, return_lse=True)
+        o, lse = flash_mha_lse(q, k, v, mask)
         ctx.save_for_backward(q, k, v, mask, o, lse)
         return o
 

@@ -17,12 +17,13 @@ device time. Then the training side: the s2a recipe's model
 B32 x 768 frames, profiled as one whole optimizer step of 4 micro-batches
 (``train_step``), one micro-batch's forward and backward
 (``train_micro_fwd_bwd``) and the AdamW update alone
-(``train_optimizer``). With ``--out`` each table also goes to
+(``train_optimizer``); and one step of the t2s recipe (``t2s_train_recipe``)
+at B32 on a 960-token canvas (``t2s_train_step``). With ``--out`` each table also goes to
 ``DIR/profile_<part>.txt``.
 
 ``full_width_models``, ``bench_inputs``, ``served_engine``,
-``SERVED_TEXTS`` and ``s2a_train_recipe`` are the models, requests and
-recipe that chip_smoke.py drives too.
+``SERVED_TEXTS``, ``s2a_train_recipe`` and ``t2s_train_recipe`` are the
+models, requests and recipes that chip_smoke.py drives too.
 """
 
 from __future__ import annotations
@@ -106,6 +107,25 @@ def s2a_train_recipe(output_dir: str, data_dir: str, seed: int, steps: int) -> d
     }
 
 
+def t2s_train_recipe(output_dir: str, data_dir: str, seed: int, steps: int) -> dict:
+    """configs/text_to_semantic_w_length/train_config.yaml as a dict, cut to
+    ``steps`` optimizer steps with a 2-step warmup, logging every step and
+    saving once at the end."""
+    return {
+        "output_dir": output_dir, "seed": seed,
+        "extra_model_params": {
+            "hidden_size": 384, "semantic_vocab_size": 1024, "text_vocab_size": 256,
+            "main_encoder_num_layers": 12, "main_encoder_num_heads": 8,
+            "main_encoder_dim_head": 24, "length_predictor_num_layers": 4,
+            "length_predictor_num_heads": 8, "length_predictor_dim_head": 24},
+        "dataset_args": {"data_dir": data_dir, "format": "native"},
+        "per_device_train_batch_size": 32, "max_steps": steps, "learning_rate": 2.5e-4,
+        "warmup_steps": 2, "weight_decay": 0.0, "adam_beta1": 0.8, "adam_beta2": 0.99,
+        "adam_epsilon": 1.0e-8, "max_grad_norm": 0.5, "logging_steps": 1, "save_steps": steps,
+        "save_total_limit": 2, "bf16": True,
+    }
+
+
 def _profile_training(dev, seed: int, out: Path | None) -> None:
     """One s2a optimizer step at the recipe's size, and its two parts."""
     from edm_tts_tpu_torch.train.run_s2a import build_model, s2a_loss, training_arguments
@@ -136,6 +156,33 @@ def _profile_training(dev, seed: int, out: Path | None) -> None:
 
         _profile("train_micro_fwd_bwd", micro_fwd_bwd, out)
         _profile("train_optimizer", trainer.optimizer.step, out)
+        trainer.metrics.close()
+
+
+def _profile_t2s_training(dev, seed: int, out: Path | None) -> None:
+    """One t2s optimizer step of the recipe at B32 on a 960-token canvas
+    (700 semantic tokens, 210 text bytes: a middle length bucket)."""
+    import numpy as np
+
+    from edm_tts_tpu_torch.data.collators import collate_t2s
+    from edm_tts_tpu_torch.train import run_t2s
+    from edm_tts_tpu_torch.train.trainer import Trainer
+
+    with tempfile.TemporaryDirectory() as tmp:
+        raw = t2s_train_recipe(tmp + "/out", tmp, seed, steps=100)
+        model = run_t2s.build_model(raw, dev)
+        _, loss_fn = run_t2s.t2s_loss(model, bf16=True)
+        trainer = Trainer(run_t2s.training_arguments(raw, **run_t2s.T2S_DEFAULTS), model,
+                          loss_fn, device=dev)
+        rng = np.random.default_rng(seed)
+        batch = collate_t2s([{"semantic_tokens": rng.integers(0, 1024, 700),
+                              "transcription_bytes": rng.integers(0, 256, 210).tolist()}
+                             for _ in range(raw["per_device_train_batch_size"])])
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        steps = iter(range(1000))
+        for _ in range(2):  # warm-up
+            trainer.train_step(batch, next(steps))
+        _profile("t2s_train_step", lambda: trainer.train_step(batch, next(steps)), out)
         trainer.metrics.close()
 
 
@@ -226,6 +273,8 @@ def main() -> None:
     del t2s, s2a, engine
     torch.cuda.empty_cache()
     _profile_training(dev, args.seed, args.out)
+    torch.cuda.empty_cache()
+    _profile_t2s_training(dev, args.seed, args.out)
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
-"""Model directories a training run publishes (``save_s2a`` of
-edm_tts_tpu/utils/hub.py) and reads back.
+"""Model directories a training run publishes (``save_s2a`` and
+``save_t2s`` of edm_tts_tpu/utils/hub.py) and reads back.
 
 A directory holds ``config.json`` and ``pytorch_model.bin``: the model's
 state dict under the reference's key names (weight-norm pairs already
@@ -18,6 +18,7 @@ from torch import nn
 from edm_tts_tpu_torch.convert import load_reference_state_dict
 from edm_tts_tpu_torch.models.codec import Codec, CodecConfig
 from edm_tts_tpu_torch.models.s2a import InjectionConformer, S2AConfig
+from edm_tts_tpu_torch.models.t2s import T2SConfig, TextToSemantic
 
 WEIGHTS_NAME = "pytorch_model.bin"
 
@@ -43,6 +44,16 @@ def save_s2a(path: str, model: InjectionConformer) -> None:
 
 def load_s2a(path: str, *, device="cuda", dtype=torch.float32) -> InjectionConformer:
     model = InjectionConformer(S2AConfig.load(path), device=device, dtype=dtype)
+    load_state(path, model)
+    return model
+
+
+def save_t2s(path: str, model: TextToSemantic) -> None:
+    save_pretrained(path, model, model.cfg.to_json())
+
+
+def load_t2s(path: str, *, device="cuda", dtype=torch.float32) -> TextToSemantic:
+    model = TextToSemantic(T2SConfig.load(path), device=device, dtype=dtype)
     load_state(path, model)
     return model
 

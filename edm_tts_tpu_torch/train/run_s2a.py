@@ -86,13 +86,15 @@ def model_config(raw: dict) -> tuple[dict, str | None]:
     return d, acoustic_model_path
 
 
-def training_arguments(raw: dict) -> TrainingArguments:
+def training_arguments(raw: dict, **defaults) -> TrainingArguments:
+    """The recipe's loop settings; ``defaults`` are the entry point's own
+    where they differ from the s2a ones below."""
     names = {f.name for f in dataclasses.fields(TrainingArguments)}
     kw = {k: v for k, v in raw.items() if k in names}
-    kw.setdefault("output_dir", "exp/edm_tts/injection_conformer")
     # the JAX entry point's defaults where they differ from the dataclass's
-    kw.setdefault("adam_beta1", 0.8)
-    kw.setdefault("adam_beta2", 0.99)
+    for k, v in {"output_dir": "exp/edm_tts/injection_conformer", "adam_beta1": 0.8,
+                 "adam_beta2": 0.99, **defaults}.items():
+        kw.setdefault(k, v)
     kw.setdefault("watch", os.environ.get("WANDB_WATCH") or None)
     return TrainingArguments(**kw)
 
@@ -105,8 +107,6 @@ def build_model(raw: dict, device) -> InjectionConformer:
         codec = load_codec(acoustic_model_path, device=device)
         cfg_d["codec"] = dataclasses.asdict(codec.config)
     cfg = S2AConfig.from_dict(cfg_d)
-    if cfg.gradient_checkpointing:
-        raise NotImplementedError("gradient_checkpointing is not ported")
     model = InjectionConformer(cfg, device=device)
     init_random_weights(model, raw.get("seed", 42))
     if codec is not None:

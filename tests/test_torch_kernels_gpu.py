@@ -6,8 +6,9 @@ that are not a multiple of the tiles, narrow channels, other head dims,
 fully masked leading key tiles, a batch row with no valid key, int8 products
 with a ragged last row tile and leading batch dimensions; and the attention
 backward (K3's LSE, K4, gradients through ``mha``), also at the training
-slice's shapes, and the kernels without a backward refusing a gradient. On the GPU
-machine (no jax there, so the suite's conftest cannot load):
+slice's shapes, and the kernels without a backward refusing a gradient;
+K6's four variants at both query tiles, and remat gradients on the card.
+On the GPU machine (no jax there, so the suite's conftest cannot load):
 
     python3 -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 
@@ -95,7 +96,7 @@ def test_decoder_block_kernel_matches_plain(dev, b, t, s, cin, cout):
     reset_launches()
     out = ops.fused_decoder_block(x, a0, w3, bias3, rus, s)
     assert launches == {"resunit": 3, "decoder_block": 1, "attention": 0, "attention_bwd": 0,
-                        "int8_dense": 0}
+                        "int8_dense": 0, "attn_variants": 0}
     _check(out, ops.decoder_block_reference(x, a0, w3, bias3, rus, stride=s))
 
 
@@ -289,3 +290,71 @@ def test_kernels_without_a_backward_refuse_a_gradient(dev):
         assert not ops.fused_residual_unit(x, *p, 1).requires_grad
         assert not ops.fused_decoder_block(x, *args).requires_grad
         assert not ops.int8_dense(x, wq, scale).requires_grad
+
+
+@pytest.mark.parametrize("b,t,h,d", [(2, 37, 3, 24), (1, 130, 2, 64), (2, 701, 8, 24), (1, 5, 1, 40)])
+@pytest.mark.parametrize("variant", ops.attn_variants.VARIANTS)
+@pytest.mark.parametrize("block_q", ops.attn_variants.BLOCK_Q)
+def test_attn_variant_kernel_matches_plain(dev, b, t, h, d, variant, block_q):
+    gen = torch.Generator(device=dev).manual_seed(t + d)
+    q, k, v = (torch.randn(b, t, h, d, generator=gen, device=dev).bfloat16() for _ in range(3))
+    reset_launches()
+    out = ops.attn_variant(q, k, v, variant=variant, block_q=block_q)
+    assert launches["attn_variants"] == 1
+    _check(out, ops.attn_variant_reference(q, k, v, variant=variant))
+
+
+def test_attn_variant_rejects_what_the_kernel_does_not_take(dev):
+    q = torch.randn(1, 8, 2, 24, device=dev).bfloat16()
+    with pytest.raises(ValueError):  # f32
+        ops.attn_variant(q.float(), q.float(), q.float())
+    with pytest.raises(ValueError):  # D > 64
+        big = torch.randn(1, 8, 2, 80, device=dev).bfloat16()
+        ops.attn_variant(big, big, big)
+    with pytest.raises(ValueError):  # keys of another length
+        ops.attn_variant(q, q[:, :4].contiguous(), q[:, :4].contiguous())
+    with pytest.raises(ValueError):
+        ops.attn_variant(q, q, q, variant="nomax")
+
+
+@pytest.mark.parametrize("policy", ["full", "mha", "dots"])
+def test_remat_gradients_on_the_card(dev, policy):
+    """A small s2a under bf16 autocast with dropout 0.1 from a CUDA
+    generator: each remat policy gives the gradient of no remat, leaves the
+    generator in the same state, and launches K3 twice per block under
+    "full" and once under "mha" and "dots"."""
+    import dataclasses
+
+    from edm_tts_tpu_torch.convert import init_random_weights
+    from edm_tts_tpu_torch.models.codec import CodecConfig
+    from edm_tts_tpu_torch.models.s2a import InjectionConformer, S2AConfig
+
+    cfg = S2AConfig(hidden_size=64, num_semantic_tokens=8, encoder_num_heads=2,
+                    encoder_num_layers=4, injection_layers=(1, 2), encoder_ff_dropout=0.1,
+                    encoder_conv_dropout=0.1,
+                    codec=CodecConfig(encoder_dim=4, decoder_dim=64, n_codebooks=4,
+                                      codebook_size=16, codebook_dim=4))
+    model = InjectionConformer(cfg, device=dev)
+    init_random_weights(model, 0)
+    model.acoustic_model.requires_grad_(False)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    ac = torch.randint(0, 16, (2, 4, 100), generator=gen, device=dev)
+    sem = torch.randint(0, 8, (2, 100), generator=gen, device=dev)
+    results = {}
+    for name in (None, policy):
+        model.cfg = dataclasses.replace(cfg, gradient_checkpointing=name is not None,
+                                        remat_policy=name or cfg.remat_policy)
+        model.zero_grad(set_to_none=True)
+        g = torch.Generator(device=dev).manual_seed(5)
+        reset_launches()
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            loss = model.forward_train(ac, sem, generator=g)["loss"]
+        loss.backward()
+        torch.cuda.synchronize()
+        grad = torch.cat([p.grad.flatten() for p in model.parameters() if p.requires_grad])
+        results[name] = (grad, g.get_state(), dict(launches))
+    (g0, s0, c0), (g1, s1, c1) = results[None], results[policy]
+    assert ((g1 - g0).norm() / g0.norm()).item() <= 1e-3
+    assert torch.equal(s0, s1)
+    assert c0["attention"] == 4 and c0["attention_bwd"] == 4
+    assert c1["attention"] == (8 if policy == "full" else 4) and c1["attention_bwd"] == 4

@@ -142,4 +142,4 @@ def test_cpu_wrappers_take_the_plain_path_and_count_nothing():
     torch.testing.assert_close(ops.int8_dense(x, wq, scale), ops.int8_dense_reference(x, wq, scale),
                                rtol=0, atol=0)
     assert launches == {"resunit": 0, "decoder_block": 0, "attention": 0, "attention_bwd": 0,
-                        "int8_dense": 0}
+                        "int8_dense": 0, "attn_variants": 0}

@@ -135,8 +135,13 @@ def test_copied_constants_and_configs_match_jax():
     assert S2AConfig().to_json() == JS2AConfig().to_json()
     t2s = T2SConfig(hidden_size=384, main_encoder_num_heads=8, main_encoder_dim_head=24)
     jt2s = JT2SConfig(hidden_size=384, main_encoder_num_heads=8, main_encoder_dim_head=24)
-    for port_cfg, jax_cfg in ((t2s.main_encoder_config, jt2s.main_encoder_config),
-                              (S2AConfig().encoder_config, JS2AConfig().encoder_config)):
+    for s2a, port_cfg, jax_cfg in ((False, t2s.main_encoder_config, jt2s.main_encoder_config),
+                                   (True, S2AConfig().encoder_config, JS2AConfig().encoder_config)):
         for f in dataclasses.fields(port_cfg):
+            if f.name == "remat_policy" and s2a:
+                # the JAX s2a model reads S2AConfig.remat_policy itself; the
+                # port's encoder_config carries it
+                assert port_cfg.remat_policy == JS2AConfig().remat_policy == "mha"
+                continue
             assert getattr(port_cfg, f.name) == getattr(jax_cfg, f.name), f.name
     assert t2s.semantic_offset == jt2s.semantic_offset == 261

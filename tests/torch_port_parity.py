@@ -128,7 +128,10 @@ def s2a_pair(seed: int = 0, cfg: dict = TINY_S2A):
     variables = {"params": {**variables["params"], "codec": codec_vars["params"]}}
     port_cfg = S2AConfig(**cfg, codec=CodecConfig(**TINY_CODEC))
     assert dataclasses.asdict(port_cfg) == dataclasses.asdict(jcfg)
-    assert dataclasses.asdict(port_cfg.encoder_config) == dataclasses.asdict(jcfg.encoder_config)
+    # the port's encoder_config carries S2AConfig.remat_policy, which the JAX
+    # s2a model reads from S2AConfig itself
+    assert (dataclasses.asdict(port_cfg.encoder_config)
+            == {**dataclasses.asdict(jcfg.encoder_config), "remat_policy": jcfg.remat_policy})
     model = InjectionConformer(port_cfg)
     load_reference_state_dict(model, s2a_to_torch(jcfg, variables))
     return jmodel, variables, model
