@@ -166,17 +166,23 @@ ATTENTION_TRAIN_CASES = (
 # replaced
 SOURCE_FAULTS = {
     "delta dropped": ("attention_bwd.cu", [
-        ("(dpw[e] - delta_s[c])", "(dpw[e])"),
-        ("(dpw[e] - delta_s[warp * 16 + r])", "(dpw[e])")]),
+        ("(dpt[n][e] - del)", "(dpt[n][e])"),
+        ("(dp[n][e] - dl[e >> 1])", "(dp[n][e])")]),
     "dk without the scale": ("attention_bwd.cu", [
-        ("dsw[e] = __float2bfloat16(p * (dpw[e] - delta_s[c]) * sc);",
-         "dsw[e] = __float2bfloat16(p * (dpw[e] - delta_s[c]));")]),
+        ("dpt[n][e] = p * (dpt[n][e] - del) * scd;", "dpt[n][e] = p * (dpt[n][e] - del);")]),
     "mask ignored in the backward": ("attention_bwd.cu", [
-        ("valid[j] = t < Tk && (mask == nullptr || uniform || mask[(size_t)b * Tk + t] != 0);",
-         "valid[j] = t < Tk;")]),
+        ("scan_key_tiles<kBwdWarps>(mask,", "scan_key_tiles<kBwdWarps>(nullptr,")]),
     "last query tile skipped": ("attention_bwd.cu", [
-        ("for (int q0 = 0; q0 < Tq; q0 += kBT)", "for (int q0 = 0; q0 + kBT < Tq; q0 += kBT)")]),
-    "LSE without log(l)": ("attention.cu", [("mw[lane] + logf(lw[lane])", "mw[lane]")]),
+        ("const int nqt = (Tq + kTileRows - 1) / kTileRows;",
+         "const int nqt = (Tq - 1) / kTileRows;")]),
+    "LSE without log(l)": ("attention.cu", [("(m[r] + log2f(l[r])) * kLn2", "m[r] * kLn2")]),
+    # the pipeline: a TMA coordinate one tile off (K in K3, V in K4's dq kernel)
+    "K3's K tile copied one tile off": ("attention.cu", [
+        ("&kmap, bar, 0, h, live[i] * kTileRows, b);",
+         "&kmap, bar, 0, h, (live[i] + 1) * kTileRows, b);")]),
+    "K4's dq V tile copied one tile off": ("attention_bwd.cu", [
+        ("&vmap, bar, 0, h, live[i] * kTileRows, b);",
+         "&vmap, bar, 0, h, (live[i] + 1) * kTileRows, b);")]),
     "K6 online rescale dropped": ("attn_variants.cu", [
         ("const float alpha[2] = {ex2_f32(m[0] - mx[0]), ex2_f32(m[1] - mx[1])};",
          "const float alpha[2] = {1.0f, 1.0f};")]),
@@ -217,6 +223,10 @@ def kernel_phase(torch, ops, attention_train_only: bool = False) -> dict:
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(SEED)
     bf16 = torch.bfloat16
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def tile(b, h, t):  # K3's query rows per block at this launch
+        return f"block_q {ops.attention.attention_query_tile(b, h, t, sms)}"
 
     def normal(*shape, scale=1.0):
         return torch.randn(*shape, generator=gen, device=dev) * scale
@@ -335,7 +345,7 @@ def kernel_phase(torch, ops, attention_train_only: bool = False) -> dict:
         # one exponential per (query, valid key, head): K3's, and K4's to
         # rebuild p (once, as one kernel doing both of K4's parts would)
         exps = sum(n_keys) * t * h
-        compare("attention", f"{label} with LSE",
+        compare("attention", f"{label} with LSE, {tile(b, h, t)}",
                 lambda: ops.flash_mha(q, k, v, mask=mask, return_lse=True), plain_lse, faults,
                 (4 * key_work, 4 * elems * 2 + b * t + b * h * t * 4, exps),
                 ("scaled_dot_product_attention, inputs requiring grad", sdpa_fwd))
@@ -466,7 +476,7 @@ def kernel_phase(torch, ops, attention_train_only: bool = False) -> dict:
         qt, kt, vt = (z.transpose(1, 2).contiguous() for z in (q, k, v))
         sdpa_mask = None if mask is None else mask[:, None, None, :]
         n_keys = int(valid.sum())
-        compare("attention", label, lambda: ops.flash_mha(q, k, v, mask=mask),
+        compare("attention", f"{label}, {tile(1, h, t)}", lambda: ops.flash_mha(q, k, v, mask=mask),
                 lambda: ops.mha_reference(q, k, v, mask=mask), faults,
                 (4 * h * t * n_keys * d, 4 * t * h * d * 2 + t, h * t * n_keys),
                 ("scaled_dot_product_attention", lambda: F.scaled_dot_product_attention(

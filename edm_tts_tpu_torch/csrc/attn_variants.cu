@@ -37,14 +37,13 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "common.cuh"
+#include "mma.cuh"
 
 namespace edm {
 
 enum AttnVariant { kFull = 0, kNoExp = 1, kNoSoftmax = 2, kBf16Exp = 3 };
 
 constexpr int kVK = 64;  // keys per streamed tile
-constexpr float kLog2e = 1.4426950408889634f;
 
 template <int DP>
 struct VariantLd {
@@ -52,38 +51,14 @@ struct VariantLd {
   static constexpr int vt = kVK + 8;  // row stride (bf16) of the transposed V tile
 };
 
-static __device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
-                                                uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-static __device__ __forceinline__ float ex2_f32(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 static __device__ __forceinline__ uint32_t ex2_bf16x2(uint32_t x) {
   uint32_t y;
   asm("ex2.approx.ftz.bf16x2 %0, %1;" : "=r"(y) : "r"(x));
   return y;
 }
 
-static __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 static __device__ __forceinline__ float2 unpack_bf16(uint32_t x) {
   return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&x));
-}
-
-static __device__ __forceinline__ uint32_t lds32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 template <int VARIANT, int DP, int BQ>

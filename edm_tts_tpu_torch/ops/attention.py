@@ -13,25 +13,58 @@ switch was a TPU v5e measurement and is not carried over); a CPU tensor
 goes to the plain versions. A batch row whose mask holds no valid key
 attends uniformly to every key (scores 0), in the kernels and the plain
 versions alike.
+
+The kernels copy 64-row tiles with the card's tensor-memory accelerator,
+whose rows are whole 16-byte units: they take D % 8 == 0. For any other D
+the wrappers pad q, k, v (and o, dO) with zeros to the next multiple of 8,
+scale the scores by the true D and slice the outputs (``padded_depth``,
+``pad_depth``); zero lanes change no score and no output lane that is kept.
+K3's query tile (64 or 128 rows per block) is ``attention_query_tile``.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from edm_tts_tpu_torch.kernels import launches
 from edm_tts_tpu_torch.kernels.build import check_launch, library
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
+# streaming multiprocessors of an H100 SXM (what attention_query_tile
+# assumes when it is not told the card's count)
+H100_SMS = 132
+
+
+def attention_query_tile(b: int, h: int, tq: int, sms: int = H100_SMS) -> int:
+    """Query rows per block of K3 for a (B, Tq, H) launch: 128 (8 warps
+    share each K/V tile) when the 128-row grid, B * H * ceil(Tq / 128)
+    blocks, still puts two blocks on every SM; else 64, so a small batch
+    (one request: B1 T604 H8 is 80 blocks at 64 rows) is not left with
+    half the card idle."""
+    return 128 if b * h * -(-tq // 128) >= 2 * sms else 64
+
+
+def padded_depth(d: int) -> int:
+    """The head depth the kernels take: ``d`` rounded up to a multiple of 8."""
+    return -(-d // 8) * 8
+
+
+def pad_depth(x: torch.Tensor, depth: int) -> torch.Tensor:
+    """``x`` with its last dimension zero-padded to ``depth``."""
+    return x if x.shape[-1] == depth else F.pad(x, (0, depth - x.shape[-1]))
 
 
 def mha_reference(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, mask: torch.Tensor | None = None
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, mask: torch.Tensor | None = None,
+    scale: float | None = None,
 ) -> torch.Tensor:
-    """Plain einsum-softmax attention: the CPU path and K3's oracle."""
-    scale = q.shape[-1] ** -0.5
+    """Plain einsum-softmax attention: the CPU path and K3's oracle.
+    ``scale`` defaults to ``D ** -0.5``."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
     sim = torch.einsum("bihd,bjhd->bhij", q, k) * scale
     if mask is not None:
         sim = torch.where(mask[:, None, None, :], sim, NEG_INF)
@@ -48,27 +81,29 @@ def _key_valid(mask: torch.Tensor | None, b: int, tk: int, device) -> tuple[torc
     return mask | ~any_valid[:, None], any_valid.float()
 
 
-def _scores(q: torch.Tensor, k: torch.Tensor, mask: torch.Tensor | None):
+def _scores(q: torch.Tensor, k: torch.Tensor, mask: torch.Tensor | None,
+            scale: float | None = None):
     """f32 scaled scores ``(B, H, T_q, T_k)`` with the keys that count and
     the per-row scale, as the kernels form them."""
     b, _, _, d = q.shape
     valid, row_scale = _key_valid(mask, b, k.shape[1], q.device)
-    sc = row_scale * d ** -0.5
+    sc = row_scale * (d ** -0.5 if scale is None else scale)
     s = torch.einsum("bihd,bjhd->bhij", q.float(), k.float()) * sc[:, None, None, None]
     return s, valid[:, None, None, :], sc
 
 
 def attention_lse_reference(
-    q: torch.Tensor, k: torch.Tensor, *, mask: torch.Tensor | None = None
+    q: torch.Tensor, k: torch.Tensor, *, mask: torch.Tensor | None = None,
+    scale: float | None = None,
 ) -> torch.Tensor:
     """Log-sum-exp of the scaled, masked scores per query row, f32
     ``(B*H, T_q)``: the plain version of K3's LSE output."""
-    s, valid, _ = _scores(q, k, mask)
+    s, valid, _ = _scores(q, k, mask, scale)
     lse = torch.logsumexp(torch.where(valid, s, -torch.inf), dim=-1)
     return lse.reshape(-1, q.shape[1])
 
 
-def flash_mha_bwd_reference(q, k, v, mask, o, lse, g):
+def flash_mha_bwd_reference(q, k, v, mask, o, lse, g, *, scale: float | None = None):
     """Plain version of K4: ``(dq, dk, dv)`` from the LSE, as torch ops.
 
     The same arithmetic as the kernel: ``p = exp(s - lse)`` with keys that
@@ -76,11 +111,12 @@ def flash_mha_bwd_reference(q, k, v, mask, o, lse, g):
     d^-1/2`` with ``delta = rowsum(dO * O)``, ``dq = ds K``, ``dk = ds^T Q``;
     products in f32, ``p`` and ``ds`` rounded to the inputs' dtype before
     their products, as the kernel rounds them to bf16. K4's oracle on the
-    card and the CPU path of ``flash_mha_bwd``.
+    card and the CPU path of ``flash_mha_bwd``. ``scale`` defaults to
+    ``D ** -0.5``.
     """
     b, tq, h, _ = q.shape
     dtype = q.dtype
-    s, valid, sc = _scores(q, k, mask)
+    s, valid, sc = _scores(q, k, mask, scale)
     p = torch.where(valid, torch.exp(s - lse.reshape(b, h, tq, 1)), 0.0)
     gf = g.float()
     delta = (gf * o.float()).sum(-1).transpose(1, 2)[..., None]  # (B, H, T_q, 1)
@@ -105,6 +141,17 @@ def _check_qkv(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"v {tuple(v.shape)} (need matching B, H, D <= 64)")
 
 
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x``, copied if its data does not start on 16 bytes (a tensor
+    map's base must)."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _mask_ptr(name: str, mask: torch.Tensor | None, b: int, tk: int, device):
     if mask is None:
         return None, None
@@ -123,6 +170,7 @@ def flash_mha(
     On CUDA: q/k/v bf16 contiguous ``(B, T, H, D)`` with ``D <= 64``. With
     ``return_lse`` also returns the f32 ``(B*H, T_q)`` LSE. The output is
     not attached to autograd; ``mha`` is the differentiable entry point.
+    K3 takes ``attention_query_tile``'s query rows per block for this card.
     """
     if not q.is_cuda:
         out = mha_reference(q, k, v, mask=mask)
@@ -131,15 +179,19 @@ def flash_mha(
     tk = k.shape[1]
     _check_qkv("flash_mha", q, k, v)
     mask, mask_ptr = _mask_ptr("flash_mha", mask, b, tk, q.device)
+    block_q = attention_query_tile(b, h, tq, _sm_count(q.device.index or 0))
+    dp = padded_depth(d)
+    q, k, v = (_aligned(pad_depth(x, dp)) for x in (q, k, v))
     out = torch.empty_like(q)
     lse = torch.empty((b * h, tq), dtype=torch.float32, device=q.device) if return_lse else None
     err = library().edm_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(),
         None if lse is None else lse.data_ptr(),
-        b, tq, tk, h, d, torch.cuda.current_stream(q.device).cuda_stream,
+        b, tq, tk, h, dp, d, block_q, torch.cuda.current_stream(q.device).cuda_stream,
     )
     check_launch(err, "flash_mha")
     launches["attention"] += 1
+    out = out if dp == d else out[..., :d].contiguous()
     return (out, lse) if return_lse else out
 
 
@@ -149,7 +201,9 @@ def flash_mha_bwd(q, k, v, mask, o, lse, g):
     On CUDA: q, k, v, o and ``g`` (dO) contiguous bf16 ``(B, T, H, D)``,
     ``lse`` f32 ``(B*H, T_q)`` from ``flash_mha(..., return_lse=True)``.
     ``delta = rowsum(dO * O)`` is one torch reduction here, outside the
-    kernel, as the JAX package computes it in XLA.
+    kernel, as the JAX package computes it in XLA. K4 takes lse and delta
+    with rows padded to a multiple of 4 (each 64-query box it copies must
+    start on 16 bytes).
     """
     if not q.is_cuda:
         return flash_mha_bwd_reference(q, k, v, mask, o, lse, g)
@@ -159,15 +213,21 @@ def flash_mha_bwd(q, k, v, mask, o, lse, g):
     if lse.shape != (b * h, tq) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError(f"flash_mha_bwd: lse must be contiguous f32 ({b * h}, {tq})")
     mask, mask_ptr = _mask_ptr("flash_mha_bwd", mask, b, tk, q.device)
-    delta = (g.float() * o.float()).sum(-1).transpose(1, 2).contiguous()  # (B, H, T_q)
+    delta = (g.float() * o.float()).sum(-1).transpose(1, 2).reshape(b * h, tq)
+    ld = -(-tq // 4) * 4
+    lse, delta = (_aligned(pad_depth(x, ld).contiguous()) for x in (lse, delta))
+    dp = padded_depth(d)
+    q, k, v, g = (_aligned(pad_depth(x, dp)) for x in (q, k, v, g))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     err = library().edm_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), mask_ptr, lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        b, tq, tk, h, d, torch.cuda.current_stream(q.device).cuda_stream,
+        b, tq, tk, h, dp, d, torch.cuda.current_stream(q.device).cuda_stream,
     )
     check_launch(err, "flash_mha_bwd")
     launches["attention_bwd"] += 1
+    if dp != d:
+        dq, dk, dv = (x[..., :d].contiguous() for x in (dq, dk, dv))
     return dq, dk, dv
 
 

@@ -11,7 +11,8 @@ s2a steps, full canvas) and each of its three stages under
 served batch: three texts of 20-98 bytes through ``TTSEngine.synthesize``
 (bucket 4, ~10 s of audio each). Per part it prints the wall time of an
 untraced run, the device kernel time (the sum of the kernels' own device
-time), the busy share (device time over that wall time) and the kernels by
+time), the busy share (device time over that wall time), the port's own
+kernels (K1-K6) with their device time, share and calls, and the kernels by
 device time. Then the training side: the s2a recipe's model
 (``s2a_train_recipe``, f32 weights, bf16 autocast) on one random batch of
 B32 x 768 frames, profiled as one whole optimizer step of 4 micro-batches
@@ -226,10 +227,17 @@ def _profile(name: str, fn, out: Path | None) -> None:
     print(f"[{name}] wall {wall * 1e3:.3f} ms, device kernel time {device_us / 1e3:.3f} ms "
           f"in {sum(e.count for e in kernels)} kernels, busy share {device_us / 1e6 / wall:.3f}",
           flush=True)
+    # the port's own kernels (K1-K6), whether or not they make the top rows
+    ours = sorted((e for e in kernels if "edm::" in e.key), key=lambda e: -e.self_device_time_total)
+    mine = f"[{name}] port kernels: " + (", ".join(
+        f"{e.key.split('edm::')[1].split('(')[0]} {e.self_device_time_total / 1e3:.3f} ms "
+        f"({100 * e.self_device_time_total / device_us:.1f} %, {e.count} calls)" for e in ours)
+        or "none")
+    print(mine, flush=True)
     table = events.table(sort_by="self_device_time_total", row_limit=14, max_name_column_width=60)
     print(table, flush=True)
     if out is not None:
-        (out / f"profile_{name}.txt").write_text(table)
+        (out / f"profile_{name}.txt").write_text(f"{mine}\n{table}")
 
 
 @torch.no_grad()

@@ -3,10 +3,13 @@
 Marked ``gpu``; every test skips where there is no CUDA device. These cover
 edge shapes that chip_smoke.py's slice shapes do not: batch > 1, lengths
 that are not a multiple of the tiles, narrow channels, other head dims,
-fully masked leading key tiles, a batch row with no valid key, int8 products
-with a ragged last row tile and leading batch dimensions; and the attention
-backward (K3's LSE, K4, gradients through ``mha``), also at the training
-slice's shapes, and the kernels without a backward refusing a gradient;
+fully masked leading and middle key tiles, a batch row with no valid key,
+Tq != Tk, head depths that are not a multiple of 8, both of K3's query
+tiles, int8 products with a ragged last row tile and leading batch
+dimensions; and the attention backward (K3's LSE, K4, gradients through
+``mha``), also at the training slice's shapes, exactly zero dk and dv at
+masked keys, bit-equal reruns, and the kernels without a backward refusing
+a gradient;
 K6's four variants at both query tiles, and remat gradients on the card.
 On the GPU machine (no jax there, so the suite's conftest cannot load):
 
@@ -248,6 +251,69 @@ def test_attention_backward_row_without_valid_keys(dev):
     (ops.mha_reference(qf, kf, vf, mask=mask) * g.float()).sum().backward()
     for a, r in zip((dq, dk, dv), (qf.grad, kf.grad, vf.grad)):
         _check(a[:1], r[:1])
+
+
+# (B, Tq, Tk, H, D, per batch row the key ranges that count or None, the
+# query tile the wrapper picks on an H100): what the redesigned K3/K4 add:
+# fully masked key tiles in the middle of a row, Tq != Tk, a D that is not
+# a multiple of 8 (padded by the wrappers), both query tiles, and rows with
+# fewer than 64 valid keys (the tiles past them are skipped; their dk and
+# dv must be exactly 0)
+TILE_CASES = {
+    "middle tiles masked": (2, 300, 300, 4, 64, (((0, 64), (128, 192), (256, 300)),
+                                                ((0, 200),)), 64),
+    "middle tiles masked D24": (2, 300, 300, 4, 24, (((0, 10), (250, 300)), ((70, 300),)), 64),
+    "Tq < Tk": (2, 100, 230, 3, 64, (((0, 230),), ((0, 150),)), 64),
+    "Tq > Tk": (1, 200, 70, 2, 24, None, 64),
+    "D20 padded": (2, 130, 130, 4, 20, (((0, 130),), ((0, 77),)), 64),
+    "D5 padded": (1, 70, 90, 2, 5, None, 64),
+    "block_q 128": (4, 600, 600, 16, 64, (((0, 600),), ((0, 411),), ((0, 37),), ((90, 600),)),
+                    128),
+    "block_q 128 D24": (8, 333, 333, 12, 24, None, 128),
+    "ragged under 64 keys": (2, 200, 200, 2, 64, (((0, 37),), ((0, 150),)), 64),
+}
+
+
+@pytest.mark.parametrize("case", list(TILE_CASES))
+def test_attention_tiles_forward_and_backward_match_plain(dev, case):
+    b, tq, tk, h, d, ranges, block_q = TILE_CASES[case]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert ops.attention.attention_query_tile(b, h, tq, sms) == block_q
+    gen = torch.Generator(device=dev).manual_seed(tq + tk + d)
+    q, g = (torch.randn(b, tq, h, d, generator=gen, device=dev).bfloat16() for _ in range(2))
+    k, v = (torch.randn(b, tk, h, d, generator=gen, device=dev).bfloat16() for _ in range(2))
+    mask = None
+    if ranges is not None:
+        mask = torch.zeros(b, tk, dtype=torch.bool, device=dev)
+        for i, row in enumerate(ranges):
+            for lo, hi in row:
+                mask[i, lo:hi] = True
+    reset_launches()
+    out = ops.flash_mha(q, k, v, mask=mask)
+    o, lse = ops.flash_mha(q, k, v, mask=mask, return_lse=True)
+    torch.cuda.synchronize()
+    assert out.shape == q.shape and torch.equal(out, o)  # the LSE changes nothing else
+    _check(o, ops.mha_reference(q, k, v, mask=mask))
+    torch.testing.assert_close(lse, ops.attention_lse_reference(q, k, mask=mask),
+                               rtol=0, atol=1e-4)
+    grads = ops.flash_mha_bwd(q, k, v, mask, o, lse, g)
+    assert launches["attention"] == 2 and launches["attention_bwd"] == 1
+    for a, r in zip(grads, ops.flash_mha_bwd_reference(q, k, v, mask, o, lse, g)):
+        assert a.shape == r.shape
+        _check(a, r)
+    if mask is not None:
+        assert not grads[1][~mask].any() and not grads[2][~mask].any()
+
+
+def test_attention_backward_is_deterministic(dev):
+    """dq, dk and dv sum in a fixed order (no atomics): two runs agree to
+    the bit."""
+    q, k, v, g, mask = _k4_case(dev, 4, 701, 8, 24, (701, 650, 512, 97), seed=9)
+    o, lse = ops.flash_mha(q, k, v, mask=mask, return_lse=True)
+    first = ops.flash_mha_bwd(q, k, v, mask, o, lse, g)
+    second = ops.flash_mha_bwd(q, k, v, mask, o, lse, g)
+    for a, r in zip(first, second):
+        assert torch.equal(a, r)
 
 
 @pytest.mark.parametrize("masked", [False, True])
