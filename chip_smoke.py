@@ -10,7 +10,9 @@ Phases, each reported on its own line:
      K3 attention, K3 with its LSE output and K4 attention backward, K5 int8
      dense, K6 the attention-variant ablation) against its plain PyTorch
      version at the shapes of the synthesis, serving, training and ablation
-     paths in bf16: relative l2 and max abs error within their limits (K3's
+     paths in bf16 (K5 at one request's linears and at those of a served
+     engine call in bucket 4, each at the tile its wrapper picks, beside
+     the bf16 matmul on the dequantized weight): relative l2 and max abs error within their limits (K3's
      LSE also within an absolute limit), planted faults of the plain version
      outside them, median times of the kernel, the plain version and, where
      one PyTorch call computes the same function, that call (for K4 the
@@ -31,9 +33,11 @@ Phases, each reported on its own line:
      requests (one with a given length) and one long request of three
      chunks; checks the WAVs, that the batcher coalesced requests, the
      kernels' launch counts (K5 on every quantized linear, K3, K1, and no
-     K2 on the masked decode), the int8 s2a's logits against the bf16 ones
-     and the masked decode against exact-size decodes; prints each
-     request's latency and the engine's wall per second of audio;
+     K2 on the masked decode), that K5 ran only at shapes phase 3 held
+     against its plain version (each printed with its launches), the int8
+     s2a's logits against the bf16 ones and the masked decode against
+     exact-size decodes; prints each request's latency and the engine's
+     wall per second of audio;
   6. training (d): the s2a recipe of configs/injection_conformer/
      train_config.yaml (d1024, 16 layers, B32 x 768 frames in 4
      micro-batches, bf16 autocast, f32 weights and AdamW state) through
@@ -69,12 +73,13 @@ There is no CPU fallback: without a CUDA device the script fails.
 
     python3 chip_smoke.py --source-faults
 
-plants each of SOURCE_FAULTS in a copy of K3's, K4's or K6's CUDA source
-(the package and this script copied into a temporary directory, built
-there) and runs the K3-with-LSE/K4 and ragged K6 cases of phase 3 on it
-(``--attention-kernels``, which exits 3 when a case is outside its
-limits); the sources as they are must pass first, and it exits 1 if any
-fault passes.
+plants each of SOURCE_FAULTS in a copy of K3's, K4's, K5's or K6's CUDA
+source (the package and this script copied into a temporary directory,
+built there) and runs the cases of phase 3 that hold that kernel on it: K5's
+(``--int8-kernels``), or the K3-with-LSE/K4 and ragged K6 ones
+(``--attention-kernels``); each exits 3 when a case is outside its limits.
+The sources as they are must pass first, and it exits 1 if any fault
+passes.
 """
 
 from __future__ import annotations
@@ -160,10 +165,11 @@ ATTENTION_TRAIN_CASES = (
     ("ragged B4 T701 H8 D24 mask", (4, 701, 8, 24, (701, 650, 512, 97))),
     ("t2s canvas B4 T1382 H8 D24 mask", (4, 1382, 8, 24, (1382, 1210, 905, 488))),
 )
-# --source-faults: faults planted in copies of K3's, K4's and K6's CUDA
-# sources, each of which the --attention-kernels cases must reject. name: (source in
-# edm_tts_tpu_torch/csrc, [(text, replacement), ...]); every occurrence is
-# replaced
+# --source-faults: faults planted in copies of the kernels' CUDA sources,
+# each of which the cases of its kernels must reject (K5's under
+# --int8-kernels, K3's, K4's and K6's under --attention-kernels). name:
+# (source in edm_tts_tpu_torch/csrc, [(text, replacement), ...]); every
+# occurrence is replaced
 SOURCE_FAULTS = {
     "delta dropped": ("attention_bwd.cu", [
         ("(dpt[n][e] - del)", "(dpt[n][e])"),
@@ -188,11 +194,27 @@ SOURCE_FAULTS = {
          "const float alpha[2] = {1.0f, 1.0f};")]),
     "K6 noexp without m * colsum(V)": ("attn_variants.cu", [
         ("if (VARIANT == kNoExp) x -= num_shift[r] * vsum_s[d];", "")]),
+    "K5 scale ignored": ("qdense.cu", [
+        ("const float sc0 = scale[n], sc1 = scale[n + 1];", "const float sc0 = 1.0f, sc1 = 1.0f;")]),
+    "K5 int8 read as unsigned": ("qdense.cu", [
+        ("const uint32_t bias = (p & 0x00800080u) | 0x43004300u;",
+         "const uint32_t bias = 0x43004300u;")]),
+    "K5 last K tile skipped": ("qdense.cu", [
+        ("const int nk_all = (K + kQK - 1) / kQK", "const int nk_all = (K - 1) / kQK")]),
+    "K5 ragged last M tile not stored": ("qdense.cu", [
+        ("if (m >= M) continue;", "if (m >= M / BM * BM) continue;")]),
+    # the split K: each block adds only the first block's sums
+    "K5 split sums of the other blocks dropped": ("qdense.cu", [
+        ("for (int r = 0; r < splits; ++r) {", "for (int r = 0; r < 1; ++r) {")]),
+    # the pipeline: the weight tile read without the copy engine's swizzle
+    "K5 weight bytes read unswizzled": ("qdense.cu", [
+        ("((((col >> 4) ^ (r & 7))) << 4)", "((col >> 4) << 4)")]),
 }
 
 
 class CheckFailed(SystemExit):
-    """A result outside its limit: exit code 1 (3 under ``--attention-kernels``)."""
+    """A result outside its limit: exit code 1 (3 under ``--attention-kernels``
+    and ``--int8-kernels``)."""
 
 
 def fail(msg: str) -> None:
@@ -203,10 +225,10 @@ def rel_l2(torch, out, ref) -> float:
     return ((out.float() - ref.float()).norm() / ref.float().norm()).item()
 
 
-def kernel_phase(torch, ops, attention_train_only: bool = False) -> dict:
+def kernel_phase(torch, ops, part: str | None = None) -> dict:
     """Each kernel against its plain version at the slices' shapes; with
-    ``attention_train_only`` only K3 with its LSE, K4 and K6's ragged cases
-    (what ``--source-faults`` needs).
+    ``part`` "attention" only K3 with its LSE, K4 and K6's ragged cases, with
+    "int8" only K5's cases (what ``--source-faults`` needs).
 
     Alphas are drawn U(0.5, 2), biases N(0, 0.5) and the int8 weights'
     column magnitudes U(0.5, 2), so that every term of the arithmetic moves
@@ -218,6 +240,9 @@ def kernel_phase(torch, ops, attention_train_only: bool = False) -> dict:
     from edm_tts_tpu_torch.ops.decoder_block import phase_weights
     from edm_tts_tpu_torch.profile_attn_variants import SHAPE
     from edm_tts_tpu_torch.profile_attn_variants import work as variant_work
+    from edm_tts_tpu_torch.profile_qdense import CASES as INT8_CASES
+    from edm_tts_tpu_torch.profile_qdense import SERVED_CASES as SERVED_INT8_CASES
+    from edm_tts_tpu_torch.profile_qdense import int8_work
     from edm_tts_tpu_torch.utils.devtime import bound, median_ms
 
     dev = "cuda"
@@ -296,12 +321,12 @@ def kernel_phase(torch, ops, attention_train_only: bool = False) -> dict:
                                 planted_fault_rel_l2=fault_rel))
 
     # K3 with its LSE and K4 (attention_bwd, both of its kernels) at
-    # ATTENTION_TRAIN_CASES. The library calls are SDPA with the same bool
+    # ATTENTION_TRAIN_CASES (not under --int8-kernels). The library calls are SDPA with the same bool
     # mask on inputs that require grad: for K3 its forward (which keeps its
     # LSE for the backward), for K4 its backward (forward and backward timed
     # together, the forward subtracted). K4's plain version takes the plain
     # LSE, so an LSE error of K3 also shows in dq, dk and dv.
-    for label, (b, t, h, d, lens) in ATTENTION_TRAIN_CASES:
+    for label, (b, t, h, d, lens) in ATTENTION_TRAIN_CASES if part != "int8" else ():
         q, k, v, g = (normal(b, t, h, d).to(bf16) for _ in range(4))
         mask = None
         n_keys = [t] * b
@@ -380,8 +405,8 @@ def kernel_phase(torch, ops, attention_train_only: bool = False) -> dict:
     # K6: each variant at each query tile, at the ablation's shape (B32
     # T1408 H16 D24; not under --attention-kernels) and at two ragged ones.
     # The library call is SDPA (the full softmax) on the (B, H, T, D) layout.
-    k6_shapes = [(2, 701, 8, 24), (2, 701, 8, 64)]
-    if not attention_train_only:
+    k6_shapes = [] if part == "int8" else [(2, 701, 8, 24), (2, 701, 8, 64)]
+    if part is None:
         k6_shapes.insert(0, SHAPE)
     for b, t, h, d in k6_shapes:
         q, k, v = (normal(b, t, h, d).to(bf16) for _ in range(3))
@@ -410,7 +435,7 @@ def kernel_phase(torch, ops, attention_train_only: bool = False) -> dict:
                         variant_work(variant, b, t, h, d),
                         ("scaled_dot_product_attention",
                          lambda: F.scaled_dot_product_attention(qt, kt, vt)))
-    if attention_train_only:
+    if part == "attention":
         return cases
 
     def resunit_work(b, t, c):
@@ -419,7 +444,7 @@ def kernel_phase(torch, ops, attention_train_only: bool = False) -> dict:
     # K1: decoder blocks 0 and 1 (C 768 at T 4000, C 384 at T 20002); on the
     # masked decode also the tail blocks' units (C 192 at T 80008, C 96 at
     # T 160016): a 500-frame canvas
-    for t, c in ((4000, 768), (20002, 384), (80008, 192), (160016, 96)):
+    for t, c in ((4000, 768), (20002, 384), (80008, 192), (160016, 96)) if part is None else ():
         x = normal(1, t, c).to(bf16)
         for d in (1, 3, 9):
             p = resunit_params(c)
@@ -432,7 +457,7 @@ def kernel_phase(torch, ops, attention_train_only: bool = False) -> dict:
                         x, *replaced(p, 0, p[0] * 0 + 1), dilation=d)},
                     resunit_work(1, t, c))
     # K2: the s=4 and s=2 tail blocks
-    for s, t, cin, cout in ((4, 20002, 384, 192), (2, 80008, 192, 96)):
+    for s, t, cin, cout in ((4, 20002, 384, 192), (2, 80008, 192, 96)) if part is None else ():
         x = normal(1, t, cin).to(bf16)
         a0 = alpha(cin)
         bound_ = (2 * s * cout) ** -0.5
@@ -456,10 +481,11 @@ def kernel_phase(torch, ops, attention_train_only: bool = False) -> dict:
     # key mask. The t2s and s2a masks also cover the first 70 keys, so every
     # row's first KV tile is fully masked. The library call is SDPA on the
     # (B, H, T, D) layout with the same boolean mask (layouts made untimed).
-    for label, (t, h, d, lo, hi) in (("t2s T604 H8 D24 mask", (604, 8, 24, 70, 553)),
-                                     ("length predictor T101 H8 D24 mask", (101, 8, 24, 0, 90)),
-                                     ("s2a T650 H16 D64", (650, 16, 64, None, None)),
-                                     ("s2a T650 H16 D64 mask", (650, 16, 64, 70, 599))):
+    k3_cases = (("t2s T604 H8 D24 mask", (604, 8, 24, 70, 553)),
+                ("length predictor T101 H8 D24 mask", (101, 8, 24, 0, 90)),
+                ("s2a T650 H16 D64", (650, 16, 64, None, None)),
+                ("s2a T650 H16 D64 mask", (650, 16, 64, 70, 599)))
+    for label, (t, h, d, lo, hi) in k3_cases if part is None else ():
         q, k, v = (normal(1, t, h, d).to(bf16) for _ in range(3))
         pos = torch.arange(t, device=dev)[None]
         mask = None if lo is None else (pos >= lo) & (pos < hi)
@@ -481,18 +507,15 @@ def kernel_phase(torch, ops, attention_train_only: bool = False) -> dict:
                 (4 * h * t * n_keys * d, 4 * t * h * d * 2 + t, h * t * n_keys),
                 ("scaled_dot_product_attention", lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, attn_mask=sdpa_mask)))
-    # K5: every int8 linear of the served path. s2a at M = 150 + 512 (a
-    # 500-frame request), t2s at M = 128 + 4 + 1250 (text bucket 128), the
-    # length predictor at M = 1 + 128, and a batch of 4 s2a rows.
-    int8_pack_mm = None
-    k5_cases = [
-        *(("s2a", 662, 1024, n) for n in (1024, 2048, 4096, 8192)),
-        ("s2a", 662, 4096, 1024), ("s2a", 662, 2048, 1024),
-        *(("t2s", 1382, 384, n) for n in (384, 1536, 1024)),
-        ("t2s", 1382, 1536, 384), ("t2s", 1382, 768, 384), ("t2s", 1382, 192, 384),
-        ("length predictor", 129, 384, 384), ("s2a batch 4", 4 * 662, 1024, 4096),
-    ]
-    for label, m, kdim, n in k5_cases:
+    # K5: every int8 linear of one request (profile_qdense.CASES: s2a at
+    # M = 150 + 512, t2s at M = 128 + 4 + 1250, the length predictor at
+    # M = 1 + 128, a batch of 4 s2a rows) and of one served engine call in
+    # bucket 4 (SERVED_CASES), each at the tile the wrapper picks. The
+    # library call is _weight_int8pack_mm where this PyTorch has it on CUDA
+    # (not timed under --int8-kernels: up to ~50 ms a call); beside it the
+    # bf16 matmul on the dequantized weight, the cuBLAS yardstick.
+    int8_pack_mm = None if part is None else False
+    for label, m, kdim, n in INT8_CASES + SERVED_INT8_CASES:
         x = normal(m, kdim).to(bf16)
         q8, scale = ops.quantize_weight(normal(kdim, n) * uniform(n, lo=0.5, hi=2.0))
         tail_start = m // 64 * 64 if m % 64 else m - 64
@@ -517,7 +540,8 @@ def kernel_phase(torch, ops, attention_train_only: bool = False) -> dict:
             out[tail_start:] = 0
             return out
 
-        compare("int8_dense", f"{label} M{m} K{kdim} N{n}",
+        bn, bm, splits = ops.qdense.int8_dense_tile(m, kdim, n, sms)
+        compare("int8_dense", f"{label} M{m} K{kdim} N{n} tile {bn}x{bm}/{splits}",
                 lambda: ops.int8_dense(x, q8, scale),
                 lambda: ops.int8_dense_reference(x, q8, scale),
                 {"scale ignored": lambda: (x.float() @ q8.float()).to(bf16),
@@ -526,11 +550,14 @@ def kernel_phase(torch, ops, attention_train_only: bool = False) -> dict:
                  "last K step dropped": lambda: ops.int8_dense_reference(
                      x[:, :-32], q8[:-32], scale),
                  "tail M rows zeroed": tail_zeroed},
-                (2 * m * kdim * n, 2 * m * kdim + kdim * n + 2 * m * n + 4 * n), library)
-        # a second yardstick: the bf16 product on the dequantized weight
-        cases["int8_dense"][-1]["matmul_bf16_ms"] = median_ms(lambda: torch.matmul(x, w_deq))
+                int8_work(m, kdim, n), library)
+        # the yardstick: the bf16 product on the dequantized weight
+        matmul_ms = median_ms(lambda: torch.matmul(x, w_deq))
+        cases["int8_dense"][-1].update(m=m, k=kdim, n=n, tile=f"{bn}x{bm}/{splits}",
+                                       matmul_bf16_ms=matmul_ms)
         print(f"kernel int8_dense {label} M{m} K{kdim} N{n}: bf16 matmul on the dequantized "
-              f"weight ms {cases['int8_dense'][-1]['matmul_bf16_ms']:.4f}", flush=True)
+              f"weight ms {matmul_ms:.4f}, K5 / matmul {cases['int8_dense'][-1]['ms'] / matmul_ms:.3f}",
+              flush=True)
     return cases
 
 
@@ -558,15 +585,18 @@ def block_int8_sites(cfg) -> int:
     return sum(quantizable_shape(k, n) for k, n in shapes)
 
 
-def served_path(torch, t2s, s2a, dev, smi: str) -> dict:
-    """(c): the int8 models behind TTSEngine -> DynamicBatcher -> TTSServer."""
+def served_path(torch, t2s, s2a, dev, smi: str, held: set) -> dict:
+    """(c): the int8 models behind TTSEngine -> DynamicBatcher -> TTSServer.
+    ``held``: the (M, K, N) at which the kernel phase held K5 against its
+    plain version; every shape the concurrent requests launch K5 at must
+    be one of them."""
     import urllib.request
     from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
     from scipy.io import wavfile
 
-    from edm_tts_tpu_torch.kernels import launches, reset_launches
+    from edm_tts_tpu_torch.kernels import int8_dense_shapes, launches, reset_launches
     from edm_tts_tpu_torch.ops import quantizable_shape
     from edm_tts_tpu_torch.profile_synthesis import (
         PRED_ITERS,
@@ -660,6 +690,7 @@ def served_path(torch, t2s, s2a, dev, smi: str) -> dict:
             results = list(pool.map(post, bodies))
         torch.cuda.synchronize()
         counts["concurrent"] = dict(launches)
+        shapes = dict(int8_dense_shapes)
         stats = json.loads(urllib.request.urlopen(f"{base}/stats", timeout=60).read())
         for i, (status, sr, pcm, lat) in enumerate(results):
             want = 500 * engine.hop_length if "gt_length" in bodies[i] else None
@@ -675,6 +706,12 @@ def served_path(torch, t2s, s2a, dev, smi: str) -> dict:
               f"expected {want}", flush=True)
         if counts["concurrent"] != want:
             fail(f"served launches {counts['concurrent']} != expected {want}")
+        for (m, k, n), count in sorted(shapes.items()):
+            print(f"served (c) concurrent: K5 at M{m} K{k} N{n}: {count} launches"
+                  f"{'' if (m, k, n) in held else ' (not among the kernel cases)'}", flush=True)
+        if not held.issuperset(shapes):
+            fail(f"served K5 shapes {sorted(set(shapes) - held)} were not held against "
+                 f"the plain version")
         for rows, wall, audio_s in calls:
             print(f"served (c) engine call: {rows} rows, wall {wall:.4f} s for {audio_s:.2f} s "
                   f"of audio: {wall / audio_s:.5f} s per audio s ({smi})", flush=True)
@@ -1105,19 +1142,25 @@ def ablation_path(torch, smi: str) -> tuple[dict, list]:
 
 
 def source_faults() -> int:
-    """``--source-faults``: the ``--attention-kernels`` cases of the kernel phase on
-    the sources as they are (which must pass), then once for each of
-    SOURCE_FAULTS on a copy of the package and of this script in a temporary
-    directory with that one edit, built there; each must be rejected."""
+    """``--source-faults``: the ``--attention-kernels`` and ``--int8-kernels``
+    cases of the kernel phase on the sources as they are (which must pass),
+    then for each of SOURCE_FAULTS the cases of its kernel on a copy of the
+    package and of this script in a temporary directory with that one edit,
+    built there; each must be rejected."""
     import tempfile
     from pathlib import Path
 
     root = Path(__file__).resolve().parent
     pkg = root / "edm_tts_tpu_torch"
-    child = [sys.executable, "chip_smoke.py", "--attention-kernels"]
+
+    def child(source: str) -> list:
+        part = "--int8-kernels" if source == "qdense.cu" else "--attention-kernels"
+        return [sys.executable, "chip_smoke.py", part]
+
     print("source faults: the sources as they are (must pass)", flush=True)
-    if subprocess.run(child, cwd=root, timeout=600).returncode != 0:
-        fail("the --attention-kernels cases reject the sources as they are")
+    for source in ("attention.cu", "qdense.cu"):
+        if subprocess.run(child(source), cwd=root, timeout=600).returncode != 0:
+            fail(f"the {child(source)[-1]} cases reject the sources as they are")
     passed = []
     for name, (source, edits) in SOURCE_FAULTS.items():
         with tempfile.TemporaryDirectory(prefix="chip_smoke_fault_") as tmp:
@@ -1132,7 +1175,7 @@ def source_faults() -> int:
                 text = text.replace(old, new)
             path.write_text(text)
             print(f"source fault {name!r} planted in {source}:", flush=True)
-            rc = subprocess.run(child, cwd=tmp, timeout=600).returncode
+            rc = subprocess.run(child(source), cwd=tmp, timeout=600).returncode
         if rc not in (0, 3):
             fail(f"the check of source fault {name!r} did not run to its end (exit {rc})")
         print(f"source fault {name!r}: {'passed' if rc == 0 else 'rejected'}", flush=True)
@@ -1141,7 +1184,7 @@ def source_faults() -> int:
     print(f"source faults rejected: {len(SOURCE_FAULTS) - len(passed)} of {len(SOURCE_FAULTS)}",
           flush=True)
     if passed:
-        fail(f"source faults passed the --attention-kernels cases: {passed}")
+        fail(f"source faults passed the cases of their kernels: {passed}")
     return 0
 
 
@@ -1153,11 +1196,14 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     mode = parser.add_mutually_exclusive_group()
     mode.add_argument("--source-faults", action="store_true",
-                      help="plant SOURCE_FAULTS in copies of K3's, K4's and K6's "
+                      help="plant SOURCE_FAULTS in copies of K3's, K4's, K5's and K6's "
                            "sources; each must be rejected")
     mode.add_argument("--attention-kernels", action="store_true",
                       help="only the K3-with-LSE/K4 and ragged K6 cases of the kernel "
                            "phase; exit 3 when one is outside its limits")
+    mode.add_argument("--int8-kernels", action="store_true",
+                      help="only the K5 cases of the kernel phase; exit 3 when one is "
+                           "outside its limits")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False; this smoke run needs an NVIDIA GPU")
@@ -1168,9 +1214,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_grad_enabled(False)
-    if args.attention_kernels:
+    if args.attention_kernels or args.int8_kernels:
         try:
-            kernel_phase(torch, ops, attention_train_only=True)
+            kernel_phase(torch, ops, "attention" if args.attention_kernels else "int8")
         except CheckFailed as e:
             print(e.code, file=sys.stderr, flush=True)
             return 3
@@ -1314,7 +1360,8 @@ def main() -> int:
     print(f"e2e (a) stages: t2s {t_t2s:.4f} s, s2a {t_s2a:.4f} s, decode {t_dec:.4f} s", flush=True)
 
     # 5. (c) the served path with int8 weights (quantizes the models in place)
-    counts_c = served_path(torch, t2s, s2a, dev, smi)
+    held = {(c["m"], c["k"], c["n"]) for c in cases["int8_dense"]}
+    counts_c = served_path(torch, t2s, s2a, dev, smi, held)
     del t2s, s2a
     torch.cuda.empty_cache()
 

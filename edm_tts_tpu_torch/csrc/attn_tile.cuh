@@ -1,7 +1,8 @@
 // Tile staging of the attention kernels K3 (attention.cu) and K4
 // (attention_bwd.cu): TMA copies of 64-row tiles of a (B, T, H, D) bf16
 // tensor into swizzled shared memory, completed on mbarriers, and the scan
-// of the key mask into 64-key tiles.
+// of the key mask into 64-key tiles. K5 (qdense.cu) uses its mbarrier, TMA
+// and tensor-map helpers.
 //
 // A tile is 64 rows (time steps of one batch row and head) x DP bf16 (D
 // padded to 32 or 64). The tensor map views the tensor as 4-D (D, H, T, B),

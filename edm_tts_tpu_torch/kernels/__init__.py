@@ -1,24 +1,34 @@
 """Hand-written CUDA kernels: build, bindings and launch counters.
 
 ``launches`` counts, per kernel, how many times its wrapper launched it on
-the card. It is the one piece of global state in the port: a run resets it,
-drives the main path and reads it back to show which kernels the path went
-through. Wrappers that take the plain version (CPU tensors) do not count.
+the card; ``int8_dense_shapes`` counts K5's launches per ``(M, K, N)``.
+They are the port's global state: a run resets them, drives the main path
+and reads them back to show which kernels the path went through, and at
+which shapes K5 ran. Wrappers that take the plain version (CPU tensors) do
+not count.
 """
 
 from __future__ import annotations
+
+import functools
+from collections import Counter
 
 import torch
 
 KERNELS = ("resunit", "decoder_block", "attention", "attention_bwd", "int8_dense",
            "attn_variants")
+# streaming multiprocessors of an H100 SXM (what the wrappers' tile choices
+# assume when they are not told the card's count)
+H100_SMS = 132
 
 launches: dict[str, int] = {name: 0 for name in KERNELS}
+int8_dense_shapes: Counter[tuple[int, int, int]] = Counter()
 
 
 def reset_launches() -> None:
     for name in KERNELS:
         launches[name] = 0
+    int8_dense_shapes.clear()
 
 
 def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
@@ -31,3 +41,9 @@ def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
             f"{name}: the kernel has no backward (the codec kernels K1/K2 get theirs "
             "with the codec-training slice; int8 K5 is inference-only); call it under "
             "torch.no_grad()")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count

@@ -19,32 +19,41 @@ whose rows are whole 16-byte units: they take D % 8 == 0. For any other D
 the wrappers pad q, k, v (and o, dO) with zeros to the next multiple of 8,
 scale the scores by the true D and slice the outputs (``padded_depth``,
 ``pad_depth``); zero lanes change no score and no output lane that is kept.
-K3's query tile (64 or 128 rows per block) is ``attention_query_tile``.
+K3's query tile (64 or 128 rows per block) is ``attention_query_tile``,
+or the caller's ``block_q``.
 """
 
 from __future__ import annotations
 
-import functools
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
-from edm_tts_tpu_torch.kernels import launches
+from edm_tts_tpu_torch.kernels import H100_SMS, launches, sm_count
 from edm_tts_tpu_torch.kernels.build import check_launch, library
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
-# streaming multiprocessors of an H100 SXM (what attention_query_tile
-# assumes when it is not told the card's count)
-H100_SMS = 132
 
 
-def attention_query_tile(b: int, h: int, tq: int, sms: int = H100_SMS) -> int:
-    """Query rows per block of K3 for a (B, Tq, H) launch: 128 (8 warps
-    share each K/V tile) when the 128-row grid, B * H * ceil(Tq / 128)
-    blocks, still puts two blocks on every SM; else 64, so a small batch
-    (one request: B1 T604 H8 is 80 blocks at 64 rows) is not left with
-    half the card idle."""
+# K3's query tiles (rows per block); the Pallas kernel's block_q takes
+# other sizes, which K3 does not have
+QUERY_TILES = (64, 128)
+
+
+def attention_query_tile(b: int, h: int, tq: int, sms: int = H100_SMS,
+                         block_q: int | None = None) -> int:
+    """Query rows per block of K3 for a (B, Tq, H) launch: ``block_q`` when
+    given (64 or 128, else ValueError); otherwise 128 (8 warps share each
+    K/V tile) when the 128-row grid, B * H * ceil(Tq / 128) blocks, still
+    puts two blocks on every SM, and 64 below that, so a small batch (one
+    request: B1 T604 H8 is 80 blocks at 64 rows) is not left with half the
+    card idle."""
+    if block_q is not None:
+        if block_q not in QUERY_TILES:
+            raise ValueError(f"flash_mha: block_q must be one of {QUERY_TILES} or None, "
+                             f"got {block_q}")
+        return block_q
     return 128 if b * h * -(-tq // 128) >= 2 * sms else 64
 
 
@@ -147,11 +156,6 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _mask_ptr(name: str, mask: torch.Tensor | None, b: int, tk: int, device):
     if mask is None:
         return None, None
@@ -163,14 +167,16 @@ def _mask_ptr(name: str, mask: torch.Tensor | None, b: int, tk: int, device):
 
 def flash_mha(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, mask: torch.Tensor | None = None,
-    return_lse: bool = False,
+    block_q: int | None = None, return_lse: bool = False,
 ):
     """Attention through K3 on the card, ``mha_reference`` on the CPU.
 
     On CUDA: q/k/v bf16 contiguous ``(B, T, H, D)`` with ``D <= 64``. With
     ``return_lse`` also returns the f32 ``(B*H, T_q)`` LSE. The output is
     not attached to autograd; ``mha`` is the differentiable entry point.
-    K3 takes ``attention_query_tile``'s query rows per block for this card.
+    K3 takes ``attention_query_tile``'s query rows per block for this card;
+    ``block_q`` (64 or 128) forces one, any other value raises. The CPU
+    path computes the same function at any tile and ignores it.
     """
     if not q.is_cuda:
         out = mha_reference(q, k, v, mask=mask)
@@ -179,7 +185,7 @@ def flash_mha(
     tk = k.shape[1]
     _check_qkv("flash_mha", q, k, v)
     mask, mask_ptr = _mask_ptr("flash_mha", mask, b, tk, q.device)
-    block_q = attention_query_tile(b, h, tq, _sm_count(q.device.index or 0))
+    block_q = attention_query_tile(b, h, tq, sm_count(q.device.index or 0), block_q)
     dp = padded_depth(d)
     q, k, v = (_aligned(pad_depth(x, dp)) for x in (q, k, v))
     out = torch.empty_like(q)

@@ -8,7 +8,9 @@ column f32 ``kernel_scale`` ``(N,)``.
 
 ``int8_dense`` computes ``(x @ W_int8) * scale`` with f32 accumulation,
 cast to ``x.dtype``: kernel K5 for a CUDA tensor, ``int8_dense_reference``
-(the JAX package's ``implementation="xla"`` branch) for a CPU tensor.
+(the JAX package's ``implementation="xla"`` branch) for a CPU tensor. K5
+takes one of ``INT8_TILES`` per launch, ``int8_dense_tile``'s choice for
+the shape and the card unless the caller forces one.
 ``implementation="w8a8"`` also quantizes the activations per row and runs
 an s8 x s8 -> s32 product; it is plain PyTorch in both packages
 (``torch._int_mm`` on the card, an int32 matmul on the CPU).
@@ -16,13 +18,50 @@ an s8 x s8 -> s32 product; it is plain PyTorch in both packages
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
 
-from edm_tts_tpu_torch.kernels import launches, refuse_grad
+from edm_tts_tpu_torch.kernels import H100_SMS, int8_dense_shapes, launches, refuse_grad, sm_count
 from edm_tts_tpu_torch.kernels.build import check_launch, library
 
 MODES = ("int8", "w8a8")
+# K5's compiled tiles, (output columns, x rows) per block, in the order of
+# the kernel's tile index (csrc/qdense.cu, edm_int8_dense)
+INT8_TILES = ((128, 256), (128, 128), (128, 64))
+# most blocks (of one cluster) that split an output tile's K steps
+MAX_SPLITS = 4
+# The cost model of int8_dense_tile, in microseconds on a full card: a
+# block's time per 64-deep K step at each tile's x rows, a fixed cost per
+# wave of blocks, and the cost of each added split (fitted to
+# profile_qdense's sweep of every launch at one request's and one served
+# batch's shapes on an H100 SXM: its picks sum to within 4 % of the fastest
+# launch of each case)
+STEP_US = {256: 0.7, 128: 0.45, 64: 0.36}
+WAVE_US = 8.0
+SPLIT_US = 3.0
+
+
+@functools.lru_cache(maxsize=4096)  # a served call asks for ~20 shapes 2105 times
+def int8_dense_tile(m: int, k: int, n: int, sms: int = H100_SMS) -> tuple[int, int, int]:
+    """K5's launch for an ``(m, k) @ (k, n)`` product on a card of ``sms``
+    multiprocessors: ``(output columns, x rows, splits)``, a tile of
+    INT8_TILES whose columns divide ``n`` and 1 to MAX_SPLITS blocks per
+    output tile, the one of least estimated time: waves of blocks (one
+    block per multiprocessor) times a block's K steps times STEP_US plus
+    WAVE_US, plus SPLIT_US per added split. A tie goes to the larger tile,
+    then to fewer splits."""
+    steps = -(-k // 64)
+
+    def cost(launch):
+        bn, bm, splits = launch
+        waves = -(-(n // bn * -(-m // bm) * splits) // sms)
+        block = -(-steps // splits) * STEP_US[bm] + WAVE_US
+        return waves * block + (splits - 1) * SPLIT_US, -bm, splits
+
+    return min(((bn, bm, s) for bn, bm in INT8_TILES if n % bn == 0
+                for s in range(1, min(MAX_SPLITS, steps) + 1)), key=cost)
 
 
 def quantize_weight(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -62,12 +101,17 @@ def _w8a8(x: torch.Tensor, kernel_q: torch.Tensor, kernel_scale: torch.Tensor) -
 
 
 def int8_dense(x: torch.Tensor, kernel_q: torch.Tensor, kernel_scale: torch.Tensor,
-               *, implementation: str = "int8") -> torch.Tensor:
+               *, implementation: str = "int8",
+               tile: tuple[int, int, int] | None = None) -> torch.Tensor:
     """``x @ dequant(kernel_q)``: ``(..., K)`` -> ``(..., N)`` in ``x.dtype``.
 
     ``implementation``: ``"int8"`` (K5 on CUDA: x bf16, ``K % 32 == 0`` and
     ``N % 128 == 0``, else it raises) or ``"w8a8"``. K5 is inference-only:
     on CUDA it raises when autograd would need a gradient through it.
+    ``tile`` forces K5's launch, ``(output columns, x rows, splits)`` with
+    the first two one of ``INT8_TILES`` dividing N and 1 <= splits <=
+    min(MAX_SPLITS, ceil(K / 64)); None takes ``int8_dense_tile``'s. The CPU
+    path computes the same function at any tile and ignores it.
     """
     if implementation not in MODES:
         raise ValueError(f"int8_dense: unknown implementation {implementation!r}")
@@ -92,15 +136,24 @@ def int8_dense(x: torch.Tensor, kernel_q: torch.Tensor, kernel_scale: torch.Tens
             raise ValueError(f"int8_dense: {name} must be contiguous, 16-byte aligned, "
                              f"on {x.device}")
     m = xf.shape[0]
+    if tile is None:
+        tile = int8_dense_tile(m, k, n, sm_count(x.device.index or 0))
+    elif (len(tile) != 3 or tuple(tile[:2]) not in INT8_TILES or n % tile[0]
+          or not 1 <= tile[2] <= min(MAX_SPLITS, -(-k // 64))):
+        raise ValueError(f"int8_dense: tile {tile} is not (columns, rows, splits) with "
+                         f"(columns, rows) one of {INT8_TILES} dividing N={n} and "
+                         f"1 <= splits <= {min(MAX_SPLITS, -(-k // 64))}")
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0:
         return out.reshape(*lead, n)
     err = library().edm_int8_dense(
         xf.data_ptr(), kernel_q.data_ptr(), kernel_scale.data_ptr(), out.data_ptr(),
-        m, k, n, torch.cuda.current_stream(x.device).cuda_stream,
+        m, k, n, INT8_TILES.index(tuple(tile[:2])), tile[2],
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     check_launch(err, "int8_dense")
     launches["int8_dense"] += 1
+    int8_dense_shapes[(m, k, n)] += 1
     return out.reshape(*lead, n)
 
 

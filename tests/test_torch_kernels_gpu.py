@@ -5,8 +5,9 @@ edge shapes that chip_smoke.py's slice shapes do not: batch > 1, lengths
 that are not a multiple of the tiles, narrow channels, other head dims,
 fully masked leading and middle key tiles, a batch row with no valid key,
 Tq != Tk, head depths that are not a multiple of 8, both of K3's query
-tiles, int8 products with a ragged last row tile and leading batch
-dimensions; and the attention backward (K3's LSE, K4, gradients through
+tiles (chosen and forced), int8 products at every compiled tile with a
+ragged last row tile, a half last K step and leading batch dimensions,
+bit-equal int8 reruns; and the attention backward (K3's LSE, K4, gradients through
 ``mha``), also at the training slice's shapes, exactly zero dk and dv at
 masked keys, bit-equal reruns, and the kernels without a backward refusing
 a gradient;
@@ -132,19 +133,60 @@ def test_attention_kernel_row_without_valid_keys_takes_the_mean_of_v(dev):
     _check(out[1], v[1].float().mean(0, keepdim=True).expand(101, 8, 24))
 
 
+def _int8_case(dev, lead, k, n, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(*lead, k, generator=gen, device=dev).bfloat16()
+    w = torch.randn(k, n, generator=gen, device=dev) * (0.5 + 1.5 * torch.rand(n, generator=gen, device=dev))
+    return (x, *ops.quantize_weight(w))
+
+
+# the gate's edges (K = 32, 96 and K % 64 == 32 end in a half K step; M 1,
+# 65 and 5528 end in a ragged row tile), N = 8192, and the served shapes
 @pytest.mark.parametrize("lead,k,n", [
     ((1,), 32, 128), ((129,), 384, 384), ((662,), 1024, 4096), ((1382,), 192, 384),
     ((2648,), 1024, 4096), ((65,), 4096, 1024), ((2, 77), 384, 1536), ((3, 662), 1024, 8192),
+    ((7,), 96, 128), ((65,), 160, 128), ((1,), 1056, 128), ((5528,), 384, 1536),
+    ((5528,), 1536, 384), ((516,), 384, 384), ((1,), 1024, 8192),
 ])
 def test_int8_dense_kernel_matches_plain(dev, lead, k, n):
-    gen = torch.Generator(device=dev).manual_seed(k + n)
-    x = torch.randn(*lead, k, generator=gen, device=dev).bfloat16()
-    w = torch.randn(k, n, generator=gen, device=dev) * (0.5 + 1.5 * torch.rand(n, generator=gen, device=dev))
-    q, scale = ops.quantize_weight(w)
+    x, q, scale = _int8_case(dev, lead, k, n, seed=k + n)
     reset_launches()
     out = ops.int8_dense(x, q, scale)
     assert launches["int8_dense"] == 1 and out.shape == (*lead, n) and out.dtype == torch.bfloat16
     _check(out, ops.int8_dense_reference(x, q, scale))
+
+
+@pytest.mark.parametrize("tile", ops.qdense.INT8_TILES)
+@pytest.mark.parametrize("splits", [1, 2, 3])
+@pytest.mark.parametrize("m,k,n", [(131, 160, 256), (300, 1024, 512), (1, 224, 256)])
+def test_int8_dense_every_tile_matches_plain(dev, tile, splits, m, k, n):
+    """Each compiled tile, whole and with its K steps split over a cluster
+    of 2 or 3 blocks, at a ragged last row tile (for every BM), a half last
+    K step, more K steps than stages, and more than one column block."""
+    x, q, scale = _int8_case(dev, (m,), k, n, seed=m + k)
+    out = ops.int8_dense(x, q, scale, tile=(*tile, splits))
+    _check(out, ops.int8_dense_reference(x, q, scale))
+
+
+def test_int8_dense_is_deterministic(dev):
+    """Each block sums its K steps in order and a split's sums are added in
+    cluster-rank order, with no atomics: reruns give the same bits, at every
+    tile and split."""
+    x, q, scale = _int8_case(dev, (700,), 1056, 1024, seed=5)
+    for tile in ops.qdense.INT8_TILES:
+        for splits in (1, 2, 4):
+            first = ops.int8_dense(x, q, scale, tile=(*tile, splits))
+            for _ in range(3):
+                assert torch.equal(ops.int8_dense(x, q, scale, tile=(*tile, splits)), first)
+
+
+def test_int8_dense_rejects_a_tile_it_does_not_have(dev):
+    x, q, scale = _int8_case(dev, (5,), 128, 384, seed=0)
+    for tile in ((256, 128, 1), (64, 64, 1), (128, 32, 1), (128, 64)):  # not compiled
+        with pytest.raises(ValueError):
+            ops.int8_dense(x, q, scale, tile=tile)
+    with pytest.raises(ValueError):  # more splits than the 2 K steps of K = 128
+        ops.int8_dense(x, q, scale, tile=(128, 64, 3))
 
 
 def test_w8a8_on_the_card_matches_the_cpu(dev):
@@ -272,6 +314,23 @@ TILE_CASES = {
     "block_q 128 D24": (8, 333, 333, 12, 24, None, 128),
     "ragged under 64 keys": (2, 200, 200, 2, 64, (((0, 37),), ((0, 150),)), 64),
 }
+
+
+@pytest.mark.parametrize("block_q", [64, 128])
+def test_flash_mha_forced_query_tile_matches_plain(dev, block_q):
+    """``block_q`` forces K3's tile; B1 T604 H8 takes 64 by itself, B4 T600
+    H16 takes 128, so each forced tile is the one the shape would not get."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    b, t, h = (4, 600, 16) if block_q == 64 else (1, 604, 8)
+    assert ops.attention.attention_query_tile(b, h, t, sms) != block_q
+    gen = torch.Generator(device=dev).manual_seed(block_q)
+    q, k, v = (torch.randn(b, t, h, 24, generator=gen, device=dev).bfloat16() for _ in range(3))
+    mask = torch.arange(t, device=dev)[None, :] < torch.tensor([t - 70 * i for i in range(b)],
+                                                               device=dev)[:, None]
+    out = ops.flash_mha(q, k, v, mask=mask, block_q=block_q)
+    _check(out, ops.mha_reference(q, k, v, mask=mask))
+    with pytest.raises(ValueError):  # K3 has no 32-row tile
+        ops.flash_mha(q, k, v, mask=mask, block_q=32)
 
 
 @pytest.mark.parametrize("case", list(TILE_CASES))
