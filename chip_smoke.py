@@ -12,9 +12,12 @@ Phases, each reported on its own line:
      version at the shapes of the synthesis, serving, training and ablation
      paths in bf16 (K5 at one request's linears and at those of a served
      engine call in bucket 4, each at the tile its wrapper picks, beside
-     the bf16 matmul on the dequantized weight): relative l2 and max abs error within their limits (K3's
-     LSE also within an absolute limit), planted faults of the plain version
-     outside them, median times of the kernel, the plain version and, where
+     the bf16 matmul on the dequantized weight; K1 at one request's 12
+     units and those of a served call in bucket 4 and of a one-row call,
+     each at the N tile its wrapper picks, beside cuDNN's conv1d and a
+     matmul of its two convolutions, as information): relative l2 and max
+     abs error within their limits (K3's LSE also within an absolute
+     limit), planted faults of the plain version outside them, median times of the kernel, the plain version and, where
      one PyTorch call computes the same function, that call (for K4 the
      backward of scaled_dot_product_attention: forward and backward timed,
      the forward subtracted; for K6 SDPA's forward); the least time the card
@@ -33,10 +36,10 @@ Phases, each reported on its own line:
      requests (one with a given length) and one long request of three
      chunks; checks the WAVs, that the batcher coalesced requests, the
      kernels' launch counts (K5 on every quantized linear, K3, K1, and no
-     K2 on the masked decode), that K5 ran only at shapes phase 3 held
-     against its plain version (each printed with its launches), the int8
-     s2a's logits against the bf16 ones and the masked decode against
-     exact-size decodes; prints each request's latency and the engine's
+     K2 on the masked decode), that K5 and K1 ran only at shapes phase 3
+     held against their plain versions (each printed with its launches),
+     the int8 s2a's logits against the bf16 ones and the masked decode
+     against exact-size decodes; prints each request's latency and the engine's
      wall per second of audio;
   6. training (d): the s2a recipe of configs/injection_conformer/
      train_config.yaml (d1024, 16 layers, B32 x 768 frames in 4
@@ -73,11 +76,12 @@ There is no CPU fallback: without a CUDA device the script fails.
 
     python3 chip_smoke.py --source-faults
 
-plants each of SOURCE_FAULTS in a copy of K3's, K4's, K5's or K6's CUDA
-source (the package and this script copied into a temporary directory,
-built there) and runs the cases of phase 3 that hold that kernel on it: K5's
-(``--int8-kernels``), or the K3-with-LSE/K4 and ragged K6 ones
-(``--attention-kernels``); each exits 3 when a case is outside its limits.
+plants each of SOURCE_FAULTS in a copy of K1's, K3's, K4's, K5's or K6's
+CUDA source (the package and this script copied into a temporary directory,
+built there) and runs the cases of phase 3 that hold that kernel on it:
+K1's one-request cases (``--codec-kernels``), K5's (``--int8-kernels``),
+or the K3-with-LSE/K4 and ragged K6 ones (``--attention-kernels``); each
+exits 3 when a case is outside its limits.
 The sources as they are must pass first, and it exits 1 if any fault
 passes.
 """
@@ -166,10 +170,10 @@ ATTENTION_TRAIN_CASES = (
     ("t2s canvas B4 T1382 H8 D24 mask", (4, 1382, 8, 24, (1382, 1210, 905, 488))),
 )
 # --source-faults: faults planted in copies of the kernels' CUDA sources,
-# each of which the cases of its kernels must reject (K5's under
-# --int8-kernels, K3's, K4's and K6's under --attention-kernels). name:
-# (source in edm_tts_tpu_torch/csrc, [(text, replacement), ...]); every
-# occurrence is replaced
+# each of which the cases of its kernels must reject (K1's under
+# --codec-kernels, K5's under --int8-kernels, K3's, K4's and K6's under
+# --attention-kernels). name: (source in edm_tts_tpu_torch/csrc, [(text,
+# replacement), ...]); every occurrence is replaced
 SOURCE_FAULTS = {
     "delta dropped": ("attention_bwd.cu", [
         ("(dpt[n][e] - del)", "(dpt[n][e])"),
@@ -190,10 +194,12 @@ SOURCE_FAULTS = {
         ("&vmap, bar, 0, h, live[i] * kTileRows, b);",
          "&vmap, bar, 0, h, (live[i] + 1) * kTileRows, b);")]),
     "K6 online rescale dropped": ("attn_variants.cu", [
-        ("const float alpha[2] = {ex2_f32(m[0] - mx[0]), ex2_f32(m[1] - mx[1])};",
-         "const float alpha[2] = {1.0f, 1.0f};")]),
+        ("alpha[r] = ex2_f32(m[r] - m_new);", "alpha[r] = 1.0f;")]),
     "K6 noexp without m * colsum(V)": ("attn_variants.cu", [
-        ("if (VARIANT == kNoExp) x -= num_shift[r] * vsum_s[d];", "")]),
+        ("x0 -= m[r] * vacc[n][2 * r];", ""), ("x1 -= m[r] * vacc[n][2 * r + 1];", "")]),
+    # the pipeline: K's TMA coordinate one tile off
+    "K6's K tile copied one tile off": ("attn_variants.cu", [
+        ("&kmap, bar, 0, h, i * kTileRows, b);", "&kmap, bar, 0, h, (i + 1) * kTileRows, b);")]),
     "K5 scale ignored": ("qdense.cu", [
         ("const float sc0 = scale[n], sc1 = scale[n + 1];", "const float sc0 = 1.0f, sc1 = 1.0f;")]),
     "K5 int8 read as unsigned": ("qdense.cu", [
@@ -209,12 +215,30 @@ SOURCE_FAULTS = {
     # the pipeline: the weight tile read without the copy engine's swizzle
     "K5 weight bytes read unswizzled": ("qdense.cu", [
         ("((((col >> 4) ^ (r & 7))) << 4)", "((col >> 4) << 4)")]),
+    # K1: the last tap's A tile one row late, in the dilated conv only
+    "K1 a tap's row coordinate off by one": ("resunit.cu", [
+        ("t0 + (tap - TAPS / 2) * dil, b);", "t0 + (tap - TAPS / 2) * dil + (tap == 6), b);")]),
+    "K1 b7 dropped": ("resunit.cu", [
+        ("bi[j] = bias[n + j];", "bi[j] = EPI == kConv7 ? 0.0f : bias[n + j];")]),
+    "K1 alpha2 ignored": ("resunit.cu", [("al[j] = alpha[n + j];", "al[j] = 1.0f;")]),
+    "K1 last N tile not stored": ("resunit.cu", [
+        ("if (threadIdx.x >= kRowStep * kChunks || n >= C) return;",
+         "if (threadIdx.x >= kRowStep * kChunks || n >= C ||\n"
+         "      (EPI == kConv1 && blockIdx.x + 1 == gridDim.x)) return;")]),
+    "K1 residual dropped": ("resunit.cu", [
+        ("v[2 * j] += bi[2 * j] + x2.x;", "v[2 * j] += bi[2 * j];"),
+        ("v[2 * j + 1] += bi[2 * j + 1] + x2.y;", "v[2 * j + 1] += bi[2 * j + 1];")]),
+    # the pipeline: tiles copied unswizzled while wgmma reads them swizzled
+    "K1 swizzle read wrong": ("resunit.cu", [
+        ("CU_TENSOR_MAP_SWIZZLE_128B", "CU_TENSOR_MAP_SWIZZLE_NONE")]),
 }
+# the --source-faults mode of each fault's source
+FAULT_MODES = {"resunit.cu": "--codec-kernels", "qdense.cu": "--int8-kernels"}
 
 
 class CheckFailed(SystemExit):
-    """A result outside its limit: exit code 1 (3 under ``--attention-kernels``
-    and ``--int8-kernels``)."""
+    """A result outside its limit: exit code 1 (3 under ``--attention-kernels``,
+    ``--int8-kernels`` and ``--codec-kernels``)."""
 
 
 def fail(msg: str) -> None:
@@ -228,7 +252,8 @@ def rel_l2(torch, out, ref) -> float:
 def kernel_phase(torch, ops, part: str | None = None) -> dict:
     """Each kernel against its plain version at the slices' shapes; with
     ``part`` "attention" only K3 with its LSE, K4 and K6's ragged cases, with
-    "int8" only K5's cases (what ``--source-faults`` needs).
+    "int8" only K5's cases, with "codec" only K1's one-request cases (what
+    ``--source-faults`` needs).
 
     Alphas are drawn U(0.5, 2), biases N(0, 0.5) and the int8 weights'
     column magnitudes U(0.5, 2), so that every term of the arithmetic moves
@@ -243,6 +268,10 @@ def kernel_phase(torch, ops, part: str | None = None) -> dict:
     from edm_tts_tpu_torch.profile_qdense import CASES as INT8_CASES
     from edm_tts_tpu_torch.profile_qdense import SERVED_CASES as SERVED_INT8_CASES
     from edm_tts_tpu_torch.profile_qdense import int8_work
+    from edm_tts_tpu_torch.profile_resunit import CASES as RESUNIT_CASES
+    from edm_tts_tpu_torch.profile_resunit import ONE_ROW_CASES as ONE_ROW_RESUNIT_CASES
+    from edm_tts_tpu_torch.profile_resunit import SERVED_CASES as SERVED_RESUNIT_CASES
+    from edm_tts_tpu_torch.profile_resunit import resunit_work
     from edm_tts_tpu_torch.utils.devtime import bound, median_ms
 
     dev = "cuda"
@@ -326,7 +355,7 @@ def kernel_phase(torch, ops, part: str | None = None) -> dict:
     # LSE for the backward), for K4 its backward (forward and backward timed
     # together, the forward subtracted). K4's plain version takes the plain
     # LSE, so an LSE error of K3 also shows in dq, dk and dv.
-    for label, (b, t, h, d, lens) in ATTENTION_TRAIN_CASES if part != "int8" else ():
+    for label, (b, t, h, d, lens) in ATTENTION_TRAIN_CASES if part in (None, "attention") else ():
         q, k, v, g = (normal(b, t, h, d).to(bf16) for _ in range(4))
         mask = None
         n_keys = [t] * b
@@ -405,7 +434,7 @@ def kernel_phase(torch, ops, part: str | None = None) -> dict:
     # K6: each variant at each query tile, at the ablation's shape (B32
     # T1408 H16 D24; not under --attention-kernels) and at two ragged ones.
     # The library call is SDPA (the full softmax) on the (B, H, T, D) layout.
-    k6_shapes = [] if part == "int8" else [(2, 701, 8, 24), (2, 701, 8, 64)]
+    k6_shapes = [(2, 701, 8, 24), (2, 701, 8, 64)] if part in (None, "attention") else []
     if part is None:
         k6_shapes.insert(0, SHAPE)
     for b, t, h, d in k6_shapes:
@@ -438,24 +467,39 @@ def kernel_phase(torch, ops, part: str | None = None) -> dict:
     if part == "attention":
         return cases
 
-    def resunit_work(b, t, c):
-        return 2 * b * t * c * c * 8, 2 * 2 * b * t * c + 8 * c * c * 2 + 4 * c * 4
-
-    # K1: decoder blocks 0 and 1 (C 768 at T 4000, C 384 at T 20002); on the
-    # masked decode also the tail blocks' units (C 192 at T 80008, C 96 at
-    # T 160016): a 500-frame canvas
-    for t, c in ((4000, 768), (20002, 384), (80008, 192), (160016, 96)) if part is None else ():
-        x = normal(1, t, c).to(bf16)
-        for d in (1, 3, 9):
-            p = resunit_params(c)
-            compare("resunit", f"T{t} C{c} dil{d}",
-                    lambda: ops.fused_residual_unit(x, *p, d),
-                    lambda: ops.resunit_reference(x, *p, dilation=d),
-                    {"b1 dropped": lambda: ops.resunit_reference(
-                        x, *replaced(p, 5, p[5] * 0), dilation=d),
-                     "alpha1 = 1": lambda: ops.resunit_reference(
-                        x, *replaced(p, 0, p[0] * 0 + 1), dilation=d)},
-                    resunit_work(1, t, c))
+    # K1: the 12 units of one request's 500-frame decode (profile_resunit.
+    # CASES: C 768 at T 4000 ... C 96 at T 160016; the masked decode runs the
+    # tail blocks' units as K1 too) and, not under --codec-kernels, the 12 of
+    # one served engine call (SERVED_CASES: bucket 4 on a 512-frame canvas)
+    # and the 12 of a one-row call on that canvas, each at the N tile the
+    # wrapper picks. No one PyTorch call computes the unit; as information
+    # each case also times cuDNN's conv1d of the dilated conv plus the
+    # matmul of the k=1 conv (layouts made untimed).
+    k1_cases = RESUNIT_CASES + (SERVED_RESUNIT_CASES + ONE_ROW_RESUNIT_CASES
+                                if part is None else ())
+    for label, b, t, c, d in k1_cases if part in (None, "codec") else ():
+        x = normal(b, t, c).to(bf16)
+        p = resunit_params(c)
+        compare("resunit", f"{label} tile {ops.resunit.resunit_tile(b, t, c, sms)}",
+                lambda: ops.fused_residual_unit(x, *p, d),
+                lambda: ops.resunit_reference(x, *p, dilation=d),
+                {"b1 dropped": lambda: ops.resunit_reference(
+                    x, *replaced(p, 5, p[5] * 0), dilation=d),
+                 "alpha1 = 1": lambda: ops.resunit_reference(
+                    x, *replaced(p, 0, p[0] * 0 + 1), dilation=d)},
+                resunit_work(b, t, c))
+        xt, w7t = x.transpose(1, 2).contiguous(), p[1].permute(2, 1, 0).contiguous()
+        conv_ms = median_ms(lambda: F.conv1d(xt, w7t, p[2].to(bf16), padding=3 * d, dilation=d))
+        mm_ms = median_ms(lambda: torch.matmul(x, p[4][0]))
+        k1 = cases["resunit"][-1]
+        k1.update(b=b, t=t, c=c, dilation=d, conv1d_ms=conv_ms, matmul_ms=mm_ms)
+        print(f"kernel resunit {label}: F.conv1d (cuDNN) {conv_ms:.4f} + matmul {mm_ms:.4f} = "
+              f"{conv_ms + mm_ms:.4f} ms, as information (not library_ms: neither does the "
+              f"snakes, biases or residual); K1 / them {k1['ms'] / (conv_ms + mm_ms):.3f}",
+              flush=True)
+        del x, xt
+    if part == "codec":
+        return cases
     # K2: the s=4 and s=2 tail blocks
     for s, t, cin, cout in ((4, 20002, 384, 192), (2, 80008, 192, 96)) if part is None else ():
         x = normal(1, t, cin).to(bf16)
@@ -585,18 +629,23 @@ def block_int8_sites(cfg) -> int:
     return sum(quantizable_shape(k, n) for k, n in shapes)
 
 
-def served_path(torch, t2s, s2a, dev, smi: str, held: set) -> dict:
+def served_path(torch, t2s, s2a, dev, smi: str, held: set, held_k1: set) -> dict:
     """(c): the int8 models behind TTSEngine -> DynamicBatcher -> TTSServer.
     ``held``: the (M, K, N) at which the kernel phase held K5 against its
-    plain version; every shape the concurrent requests launch K5 at must
-    be one of them."""
+    plain version, ``held_k1`` the (B, T, C, dilation) of K1; every shape
+    the concurrent requests launch K5 or K1 at must be one of them."""
     import urllib.request
     from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
     from scipy.io import wavfile
 
-    from edm_tts_tpu_torch.kernels import int8_dense_shapes, launches, reset_launches
+    from edm_tts_tpu_torch.kernels import (
+        int8_dense_shapes,
+        launches,
+        reset_launches,
+        resunit_shapes,
+    )
     from edm_tts_tpu_torch.ops import quantizable_shape
     from edm_tts_tpu_torch.profile_synthesis import (
         PRED_ITERS,
@@ -691,6 +740,7 @@ def served_path(torch, t2s, s2a, dev, smi: str, held: set) -> dict:
         torch.cuda.synchronize()
         counts["concurrent"] = dict(launches)
         shapes = dict(int8_dense_shapes)
+        k1_shapes = dict(resunit_shapes)
         stats = json.loads(urllib.request.urlopen(f"{base}/stats", timeout=60).read())
         for i, (status, sr, pcm, lat) in enumerate(results):
             want = 500 * engine.hop_length if "gt_length" in bodies[i] else None
@@ -711,6 +761,13 @@ def served_path(torch, t2s, s2a, dev, smi: str, held: set) -> dict:
                   f"{'' if (m, k, n) in held else ' (not among the kernel cases)'}", flush=True)
         if not held.issuperset(shapes):
             fail(f"served K5 shapes {sorted(set(shapes) - held)} were not held against "
+                 f"the plain version")
+        for (b, t, c, d), count in sorted(k1_shapes.items()):
+            print(f"served (c) concurrent: K1 at B{b} T{t} C{c} dil{d}: {count} launches"
+                  f"{'' if (b, t, c, d) in held_k1 else ' (not among the kernel cases)'}",
+                  flush=True)
+        if not held_k1.issuperset(k1_shapes):
+            fail(f"served K1 shapes {sorted(set(k1_shapes) - held_k1)} were not held against "
                  f"the plain version")
         for rows, wall, audio_s in calls:
             print(f"served (c) engine call: {rows} rows, wall {wall:.4f} s for {audio_s:.2f} s "
@@ -1142,8 +1199,9 @@ def ablation_path(torch, smi: str) -> tuple[dict, list]:
 
 
 def source_faults() -> int:
-    """``--source-faults``: the ``--attention-kernels`` and ``--int8-kernels``
-    cases of the kernel phase on the sources as they are (which must pass),
+    """``--source-faults``: the ``--attention-kernels``, ``--int8-kernels`` and
+    ``--codec-kernels`` cases of the kernel phase on the sources as they are
+    (which must pass),
     then for each of SOURCE_FAULTS the cases of its kernel on a copy of the
     package and of this script in a temporary directory with that one edit,
     built there; each must be rejected."""
@@ -1154,11 +1212,10 @@ def source_faults() -> int:
     pkg = root / "edm_tts_tpu_torch"
 
     def child(source: str) -> list:
-        part = "--int8-kernels" if source == "qdense.cu" else "--attention-kernels"
-        return [sys.executable, "chip_smoke.py", part]
+        return [sys.executable, "chip_smoke.py", FAULT_MODES.get(source, "--attention-kernels")]
 
     print("source faults: the sources as they are (must pass)", flush=True)
-    for source in ("attention.cu", "qdense.cu"):
+    for source in ("attention.cu", "qdense.cu", "resunit.cu"):
         if subprocess.run(child(source), cwd=root, timeout=600).returncode != 0:
             fail(f"the {child(source)[-1]} cases reject the sources as they are")
     passed = []
@@ -1196,14 +1253,17 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     mode = parser.add_mutually_exclusive_group()
     mode.add_argument("--source-faults", action="store_true",
-                      help="plant SOURCE_FAULTS in copies of K3's, K4's, K5's and K6's "
-                           "sources; each must be rejected")
+                      help="plant SOURCE_FAULTS in copies of K1's, K3's, K4's, K5's and "
+                           "K6's sources; each must be rejected")
     mode.add_argument("--attention-kernels", action="store_true",
                       help="only the K3-with-LSE/K4 and ragged K6 cases of the kernel "
                            "phase; exit 3 when one is outside its limits")
     mode.add_argument("--int8-kernels", action="store_true",
                       help="only the K5 cases of the kernel phase; exit 3 when one is "
                            "outside its limits")
+    mode.add_argument("--codec-kernels", action="store_true",
+                      help="only K1's one-request cases of the kernel phase; exit 3 when "
+                           "one is outside its limits")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False; this smoke run needs an NVIDIA GPU")
@@ -1214,9 +1274,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_grad_enabled(False)
-    if args.attention_kernels or args.int8_kernels:
+    part = ("attention" if args.attention_kernels else "int8" if args.int8_kernels
+            else "codec" if args.codec_kernels else None)
+    if part is not None:
         try:
-            kernel_phase(torch, ops, "attention" if args.attention_kernels else "int8")
+            kernel_phase(torch, ops, part)
         except CheckFailed as e:
             print(e.code, file=sys.stderr, flush=True)
             return 3
@@ -1361,7 +1423,8 @@ def main() -> int:
 
     # 5. (c) the served path with int8 weights (quantizes the models in place)
     held = {(c["m"], c["k"], c["n"]) for c in cases["int8_dense"]}
-    counts_c = served_path(torch, t2s, s2a, dev, smi, held)
+    held_k1 = {(c["b"], c["t"], c["c"], c["dilation"]) for c in cases["resunit"]}
+    counts_c = served_path(torch, t2s, s2a, dev, smi, held, held_k1)
     del t2s, s2a
     torch.cuda.empty_cache()
 

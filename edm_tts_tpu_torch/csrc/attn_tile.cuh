@@ -1,8 +1,8 @@
-// Tile staging of the attention kernels K3 (attention.cu) and K4
-// (attention_bwd.cu): TMA copies of 64-row tiles of a (B, T, H, D) bf16
-// tensor into swizzled shared memory, completed on mbarriers, and the scan
-// of the key mask into 64-key tiles. K5 (qdense.cu) uses its mbarrier, TMA
-// and tensor-map helpers.
+// Tile staging of the attention kernels K3 (attention.cu), K4
+// (attention_bwd.cu) and K6 (attn_variants.cu): TMA copies of 64-row tiles
+// of a (B, T, H, D) bf16 tensor into swizzled shared memory, completed on
+// mbarriers, and the scan of the key mask into 64-key tiles. K5 (qdense.cu)
+// and K1 (resunit.cu) use its mbarrier, TMA and tensor-map helpers.
 //
 // A tile is 64 rows (time steps of one batch row and head) x DP bf16 (D
 // padded to 32 or 64). The tensor map views the tensor as 4-D (D, H, T, B),
@@ -91,6 +91,18 @@ static __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorM
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// One box of a 3-D tensor map at (c0, c1, c2); coordinates may lie
+// outside the tensor (negative too): the copy engine fills those elements
+// with zeros.
+static __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
+                                                   uint32_t bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 

@@ -6,7 +6,8 @@
 // kernel evaluates snake exactly as the Pallas kernels and the plain
 // versions do (up to FMA contraction, ~1e-7).
 //
-// tile_conv is the one matrix-product loop of the codec kernels: a
+// tile_conv is the matrix-product loop of K2's transposed conv
+// (decoder_block.cu; K1 runs on warpgroup MMA instead): a
 // (rows x C_in) bf16 tile that lives in shared memory, convolved with a
 // (taps, C_in, N) bf16 weight streamed from device memory (L2-resident:
 // at most 7 x 768 x 768 x 2 B = 8.3 MB), with f32 accumulation in WMMA

@@ -42,10 +42,6 @@ static __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-static __device__ __forceinline__ uint32_t lds32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 // Four 8x8 bf16 matrices from shared memory: lanes 8i..8i+7 give the row
 // addresses of matrix i, which lands in r[i] in the A/B fragment layout.
 static __device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], uint32_t addr) {

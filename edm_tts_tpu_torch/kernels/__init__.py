@@ -1,10 +1,11 @@
 """Hand-written CUDA kernels: build, bindings and launch counters.
 
 ``launches`` counts, per kernel, how many times its wrapper launched it on
-the card; ``int8_dense_shapes`` counts K5's launches per ``(M, K, N)``.
-They are the port's global state: a run resets them, drives the main path
-and reads them back to show which kernels the path went through, and at
-which shapes K5 ran. Wrappers that take the plain version (CPU tensors) do
+the card; ``int8_dense_shapes`` counts K5's launches per ``(M, K, N)`` and
+``resunit_shapes`` K1's per ``(B, T, C, dilation)``. They are the port's
+global state: a run resets them, drives the main path and reads them back
+to show which kernels the path went through, and at which shapes K5 and K1
+ran. Wrappers that take the plain version (CPU tensors) do
 not count.
 """
 
@@ -23,12 +24,14 @@ H100_SMS = 132
 
 launches: dict[str, int] = {name: 0 for name in KERNELS}
 int8_dense_shapes: Counter[tuple[int, int, int]] = Counter()
+resunit_shapes: Counter[tuple[int, int, int, int]] = Counter()
 
 
 def reset_launches() -> None:
     for name in KERNELS:
         launches[name] = 0
     int8_dense_shapes.clear()
+    resunit_shapes.clear()
 
 
 def refuse_grad(name: str, *tensors: torch.Tensor) -> None:

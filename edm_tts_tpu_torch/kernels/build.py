@@ -98,12 +98,12 @@ def library() -> ctypes.CDLL:
     """The built kernel library with its C signatures declared."""
     lib = ctypes.CDLL(str(build()))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.edm_resunit.argtypes = [ptr] * 8 + [i32] * 4 + [ptr]
+    lib.edm_resunit.argtypes = [ptr] * 9 + [i32] * 5 + [ptr]
     lib.edm_tconv_phase.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
     lib.edm_attention.argtypes = [ptr] * 6 + [i32] * 7 + [ptr]
     lib.edm_attention_bwd.argtypes = [ptr] * 10 + [i32] * 6 + [ptr]
     lib.edm_int8_dense.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
-    lib.edm_attn_variant.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]
+    lib.edm_attn_variant.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
     for fn in (lib.edm_resunit, lib.edm_tconv_phase, lib.edm_attention,
                lib.edm_attention_bwd, lib.edm_int8_dense, lib.edm_attn_variant):
         fn.restype = ctypes.c_int

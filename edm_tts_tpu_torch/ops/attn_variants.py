@@ -14,7 +14,11 @@ unmasked bidirectional attention over ``(B, T, H, D)`` per variant, with
 ``p`` is cast to V's dtype before its product, as the Pallas kernel casts
 it. A CUDA tensor goes to K6 (bf16 only, ``D <= 64``), a CPU tensor to the
 plain version; ``block_q`` (64 or 128 query rows per block) is K6's
-launch parameter, the counterpart of the Pallas ``block_q``.
+launch parameter, the counterpart of the Pallas ``block_q``. K6 copies its
+tiles with the tensor-memory accelerator and takes ``D % 8 == 0``: for any
+other D the wrapper zero-pads q, k, v to the next multiple of 8, scales by
+the true D and slices the output, as K3's wrapper does (zero lanes change
+no score and no kept output lane).
 """
 
 from __future__ import annotations
@@ -23,18 +27,20 @@ import torch
 
 from edm_tts_tpu_torch.kernels import launches
 from edm_tts_tpu_torch.kernels.build import check_launch, library
+from edm_tts_tpu_torch.ops.attention import _aligned, pad_depth, padded_depth
 
 VARIANTS = ("full", "noexp", "nosoftmax", "bf16exp")
 BLOCK_Q = (64, 128)
 
 
 def attn_variant_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                           variant: str = "full") -> torch.Tensor:
+                           variant: str = "full", scale: float | None = None) -> torch.Tensor:
     """The variant as the table above says, literally: the CPU path and
-    K6's oracle."""
+    K6's oracle. ``scale`` defaults to ``D ** -0.5``."""
     if variant not in VARIANTS:
         raise ValueError(f"attn_variant: unknown variant {variant!r}; one of {VARIANTS}")
-    s = torch.einsum("bihd,bjhd->bhij", q.float(), k.float()) * q.shape[-1] ** -0.5
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    s = torch.einsum("bihd,bjhd->bhij", q.float(), k.float()) * scale
     if variant == "nosoftmax":
         p, denom = s, 1.0
     else:
@@ -72,10 +78,12 @@ def attn_variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"attn_variant: q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)} must be one (B, T, H, D) with D <= 64")
     b, t, h, d = q.shape
+    dp = padded_depth(d)
+    q, k, v = (_aligned(pad_depth(x, dp)) for x in (q, k, v))
     out = torch.empty_like(q)
     err = library().edm_attn_variant(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, t, h, d,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, t, h, dp, d,
         VARIANTS.index(variant), block_q, torch.cuda.current_stream(q.device).cuda_stream)
     check_launch(err, "attn_variant")
     launches["attn_variants"] += 1
-    return out
+    return out if dp == d else out[..., :d]

@@ -11,7 +11,11 @@ bit-equal int8 reruns; and the attention backward (K3's LSE, K4, gradients throu
 ``mha``), also at the training slice's shapes, exactly zero dk and dv at
 masked keys, bit-equal reruns, and the kernels without a backward refusing
 a gradient;
-K6's four variants at both query tiles, and remat gradients on the card.
+K6's four variants at both query tiles, padded head depths (D 8, 20) and
+bit-equal reruns; K1 at every N tile of its two products, at T below one
+128-row tile and one past it, dilations whose halo is wider than the
+sequence or the tile, B > 1 against each row alone, C 16 to 768 and
+bit-equal reruns; and remat gradients on the card.
 On the GPU machine (no jax there, so the suite's conftest cannot load):
 
     python3 -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
@@ -86,6 +90,53 @@ def test_resunit_kernel_matches_plain(dev, b, t, c, dil):
     out = ops.fused_residual_unit(x, *p, dil)
     assert launches["resunit"] == 1
     _check(out, ops.resunit_reference(x, *p, dilation=dil))
+
+
+@pytest.mark.parametrize("tile", ops.resunit.RESUNIT_TILES)
+@pytest.mark.parametrize("b,t,c,dil", [
+    (2, 130, 192, 3),   # two 128-row tiles, the second ragged; 192 channels
+    (1, 129, 96, 9),    # one row past a tile; C % 64 != 0
+    (2, 5, 384, 1),     # T below one tile
+    (1, 300, 768, 50),  # a halo of 150 rows, wider than the 128-row tile
+])
+def test_resunit_every_tile_matches_plain(dev, tile, b, t, c, dil):
+    """Each N tile of the two products, forced, at ragged time and channel
+    edges: columns past C and rows past T are never stored, and the zero
+    fill outside [0, T) is the conv's padding."""
+    gen = torch.Generator(device=dev).manual_seed(t + c)
+    x = torch.randn(b, t, c, generator=gen, device=dev).bfloat16()
+    p = _resunit_params(c, dev, gen)
+    reset_launches()
+    out = ops.fused_residual_unit(x, *p, dil, tile=tile)
+    assert launches["resunit"] == 1
+    _check(out, ops.resunit_reference(x, *p, dilation=dil))
+
+
+@pytest.mark.parametrize("c", [16, 64, 96, 192, 384, 768])
+@pytest.mark.parametrize("t,dil", [(20, 9), (128, 3), (129, 1)])
+def test_resunit_batch_rows_do_not_bleed(dev, c, t, dil):
+    """B = 3 at the tile the wrapper picks, each row held against that row
+    decoded alone: a dilated tap never reads the neighbouring row's frames
+    (at T 20 and dil 9 the 27-row halo is wider than the sequence)."""
+    gen = torch.Generator(device=dev).manual_seed(c + t)
+    x = torch.randn(3, t, c, generator=gen, device=dev).bfloat16()
+    p = _resunit_params(c, dev, gen)
+    out = ops.fused_residual_unit(x, *p, dil)
+    for i in range(3):
+        _check(out[i:i + 1], ops.resunit_reference(x[i:i + 1], *p, dilation=dil))
+
+
+def test_resunit_is_deterministic(dev):
+    """No atomics and no split sums: reruns give the same bits at every tile."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn(2, 700, 384, generator=gen, device=dev).bfloat16()
+    p = _resunit_params(384, dev, gen)
+    for tile in ops.resunit.RESUNIT_TILES:
+        first = ops.fused_residual_unit(x, *p, 9, tile=tile)
+        for _ in range(3):
+            assert torch.equal(ops.fused_residual_unit(x, *p, 9, tile=tile), first)
+    with pytest.raises(ValueError):
+        ops.fused_residual_unit(x, *p, 9, tile=96)  # not compiled
 
 
 @pytest.mark.parametrize("b,t,s,cin,cout", [(2, 21, 2, 32, 16), (1, 70, 4, 64, 32), (3, 9, 2, 16, 96)])
@@ -417,7 +468,8 @@ def test_kernels_without_a_backward_refuse_a_gradient(dev):
         assert not ops.int8_dense(x, wq, scale).requires_grad
 
 
-@pytest.mark.parametrize("b,t,h,d", [(2, 37, 3, 24), (1, 130, 2, 64), (2, 701, 8, 24), (1, 5, 1, 40)])
+@pytest.mark.parametrize("b,t,h,d", [(2, 37, 3, 24), (1, 130, 2, 64), (2, 701, 8, 24), (1, 5, 1, 40),
+                                     (2, 100, 2, 8), (1, 77, 3, 20)])
 @pytest.mark.parametrize("variant", ops.attn_variants.VARIANTS)
 @pytest.mark.parametrize("block_q", ops.attn_variants.BLOCK_Q)
 def test_attn_variant_kernel_matches_plain(dev, b, t, h, d, variant, block_q):
@@ -427,6 +479,19 @@ def test_attn_variant_kernel_matches_plain(dev, b, t, h, d, variant, block_q):
     out = ops.attn_variant(q, k, v, variant=variant, block_q=block_q)
     assert launches["attn_variants"] == 1
     _check(out, ops.attn_variant_reference(q, k, v, variant=variant))
+
+
+def test_attn_variant_is_deterministic(dev):
+    """Each warp sums its key tiles in order: reruns give the same bits."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q, k, v = (torch.randn(2, 333, 4, 20, generator=gen, device=dev).bfloat16()
+               for _ in range(3))
+    for variant in ops.attn_variants.VARIANTS:
+        for block_q in ops.attn_variants.BLOCK_Q:
+            first = ops.attn_variant(q, k, v, variant=variant, block_q=block_q)
+            for _ in range(2):
+                assert torch.equal(ops.attn_variant(q, k, v, variant=variant, block_q=block_q),
+                                   first)
 
 
 def test_attn_variant_rejects_what_the_kernel_does_not_take(dev):
