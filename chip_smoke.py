@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (edm_tts_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Phases, each reported on its own line:
   1. environment: torch / CUDA versions and the card's name and power limit;
@@ -15,7 +15,10 @@ Phases, each reported on its own line:
      the bf16 matmul on the dequantized weight; K1 at one request's 12
      units and those of a served call in bucket 4 and of a one-row call,
      each at the N tile its wrapper picks, beside cuDNN's conv1d and a
-     matmul of its two convolutions, as information): relative l2 and max
+     matmul of its two convolutions, as information; K2 at one request's
+     two blocks, its front alone at the column tile its wrapper picks
+     beside its bound, cuDNN's conv_transpose1d and, with ``--parent
+     DIR``, another checkout's front): relative l2 and max
      abs error within their limits (K3's LSE also within an absolute
      limit), planted faults of the plain version outside them, median times of the kernel, the plain version and, where
      one PyTorch call computes the same function, that call (for K4 the
@@ -76,10 +79,11 @@ There is no CPU fallback: without a CUDA device the script fails.
 
     python3 chip_smoke.py --source-faults
 
-plants each of SOURCE_FAULTS in a copy of K1's, K3's, K4's, K5's or K6's
-CUDA source (the package and this script copied into a temporary directory,
-built there) and runs the cases of phase 3 that hold that kernel on it:
-K1's one-request cases (``--codec-kernels``), K5's (``--int8-kernels``),
+plants each of SOURCE_FAULTS in a copy of K1's and K2's (the GEMM they
+share), K3's, K4's, K5's or K6's CUDA source (the package and this script
+copied into a temporary directory, built there) and runs the cases of
+phase 3 that hold that kernel on it: K1's one-request cases and K2's
+(``--codec-kernels``), K5's (``--int8-kernels``),
 or the K3-with-LSE/K4 and ragged K6 ones (``--attention-kernels``); each
 exits 3 when a case is outside its limits.
 The sources as they are must pass first, and it exits 1 if any fault
@@ -170,7 +174,7 @@ ATTENTION_TRAIN_CASES = (
     ("t2s canvas B4 T1382 H8 D24 mask", (4, 1382, 8, 24, (1382, 1210, 905, 488))),
 )
 # --source-faults: faults planted in copies of the kernels' CUDA sources,
-# each of which the cases of its kernels must reject (K1's under
+# each of which the cases of its kernels must reject (K1's and K2's under
 # --codec-kernels, K5's under --int8-kernels, K3's, K4's and K6's under
 # --attention-kernels). name: (source in edm_tts_tpu_torch/csrc, [(text,
 # replacement), ...]); every occurrence is replaced
@@ -215,25 +219,40 @@ SOURCE_FAULTS = {
     # the pipeline: the weight tile read without the copy engine's swizzle
     "K5 weight bytes read unswizzled": ("qdense.cu", [
         ("((((col >> 4) ^ (r & 7))) << 4)", "((col >> 4) << 4)")]),
-    # K1: the last tap's A tile one row late, in the dilated conv only
-    "K1 a tap's row coordinate off by one": ("resunit.cu", [
+    # K1 (the GEMM body in conv_gemm.cuh, shared with K2): the last tap's A
+    # tile one row late, in the dilated conv only
+    "K1 a tap's row coordinate off by one": ("conv_gemm.cuh", [
         ("t0 + (tap - TAPS / 2) * dil, b);", "t0 + (tap - TAPS / 2) * dil + (tap == 6), b);")]),
-    "K1 b7 dropped": ("resunit.cu", [
+    "K1 b7 dropped": ("conv_gemm.cuh", [
         ("bi[j] = bias[n + j];", "bi[j] = EPI == kConv7 ? 0.0f : bias[n + j];")]),
-    "K1 alpha2 ignored": ("resunit.cu", [("al[j] = alpha[n + j];", "al[j] = 1.0f;")]),
-    "K1 last N tile not stored": ("resunit.cu", [
-        ("if (threadIdx.x >= kRowStep * kChunks || n >= C) return;",
-         "if (threadIdx.x >= kRowStep * kChunks || n >= C ||\n"
+    "K1 alpha2 ignored": ("conv_gemm.cuh", [("al[j] = alpha[n + j];", "al[j] = 1.0f;")]),
+    "K1 last N tile not stored": ("conv_gemm.cuh", [
+        ("if (threadIdx.x >= kRowStep * kChunks || n >= N) return;",
+         "if (threadIdx.x >= kRowStep * kChunks || n >= N ||\n"
          "      (EPI == kConv1 && blockIdx.x + 1 == gridDim.x)) return;")]),
-    "K1 residual dropped": ("resunit.cu", [
+    "K1 residual dropped": ("conv_gemm.cuh", [
         ("v[2 * j] += bi[2 * j] + x2.x;", "v[2 * j] += bi[2 * j];"),
         ("v[2 * j + 1] += bi[2 * j + 1] + x2.y;", "v[2 * j + 1] += bi[2 * j + 1];")]),
     # the pipeline: tiles copied unswizzled while wgmma reads them swizzled
-    "K1 swizzle read wrong": ("resunit.cu", [
+    "K1 swizzle read wrong": ("conv_gemm.cuh", [
         ("CU_TENSOR_MAP_SWIZZLE_128B", "CU_TENSOR_MAP_SWIZZLE_NONE")]),
+    # K2's phase product: its last tap's A tile one row late
+    "K2 a tap's row coordinate off by one": ("conv_gemm.cuh", [
+        ("t0 + (tap - TAPS / 2) * dil, b);",
+         "t0 + (tap - TAPS / 2) * dil + (EPI == kPhase && tap == 2), b);")]),
+    # the tap skip: each half runs the other half's tap pair
+    "K2 the halves' tap pairs swapped": ("conv_gemm.cuh", [
+        ("tap0 = n0 >= half ? 1 : 0;", "tap0 = n0 >= half ? 0 : 1;")]),
+    # bias3 read as if it held one phase's bias: the upper phases get none
+    "K2 bias not tiled": ("conv_gemm.cuh", [
+        ("bi[j] = bias[n + j];", "bi[j] = EPI == kPhase && n >= half ? 0.0f : bias[n + j];")]),
+    "K2 last row tile not stored": ("conv_gemm.cuh", [
+        ("for (int r = threadIdx.x / kChunks; r < kConvBM && t0 + r < T; r += kRowStep) {",
+         "for (int r = threadIdx.x / kChunks; r < kConvBM && t0 + r < T &&\n"
+         "       !(EPI == kPhase && blockIdx.y + 1 == gridDim.y); r += kRowStep) {")]),
 }
 # the --source-faults mode of each fault's source
-FAULT_MODES = {"resunit.cu": "--codec-kernels", "qdense.cu": "--int8-kernels"}
+FAULT_MODES = {"conv_gemm.cuh": "--codec-kernels", "qdense.cu": "--int8-kernels"}
 
 
 class CheckFailed(SystemExit):
@@ -249,11 +268,13 @@ def rel_l2(torch, out, ref) -> float:
     return ((out.float() - ref.float()).norm() / ref.float().norm()).item()
 
 
-def kernel_phase(torch, ops, part: str | None = None) -> dict:
+def kernel_phase(torch, ops, part: str | None = None, parent_front=None) -> dict:
     """Each kernel against its plain version at the slices' shapes; with
     ``part`` "attention" only K3 with its LSE, K4 and K6's ragged cases, with
-    "int8" only K5's cases, with "codec" only K1's one-request cases (what
-    ``--source-faults`` needs).
+    "int8" only K5's cases, with "codec" only K1's one-request cases and
+    K2's (what ``--source-faults`` needs). ``parent_front``: another
+    checkout's K2 front (profile_decoder_block.parent_front), timed beside
+    this one's.
 
     Alphas are drawn U(0.5, 2), biases N(0, 0.5) and the int8 weights'
     column magnitudes U(0.5, 2), so that every term of the arithmetic moves
@@ -265,6 +286,8 @@ def kernel_phase(torch, ops, part: str | None = None) -> dict:
     from edm_tts_tpu_torch.ops.decoder_block import phase_weights
     from edm_tts_tpu_torch.profile_attn_variants import SHAPE
     from edm_tts_tpu_torch.profile_attn_variants import work as variant_work
+    from edm_tts_tpu_torch.profile_decoder_block import CASES as DECODER_BLOCK_CASES
+    from edm_tts_tpu_torch.profile_decoder_block import front_work
     from edm_tts_tpu_torch.profile_qdense import CASES as INT8_CASES
     from edm_tts_tpu_torch.profile_qdense import SERVED_CASES as SERVED_INT8_CASES
     from edm_tts_tpu_torch.profile_qdense import int8_work
@@ -498,29 +521,55 @@ def kernel_phase(torch, ops, part: str | None = None) -> dict:
               f"snakes, biases or residual); K1 / them {k1['ms'] / (conv_ms + mm_ms):.3f}",
               flush=True)
         del x, xt
-    if part == "codec":
-        return cases
-    # K2: the s=4 and s=2 tail blocks
-    for s, t, cin, cout in ((4, 20002, 384, 192), (2, 80008, 192, 96)) if part is None else ():
-        x = normal(1, t, cin).to(bf16)
+    # K2: the s=4 and s=2 tail blocks of one request's decode (profile_
+    # decoder_block.CASES), also under --codec-kernels. As information each
+    # case also times K2's front alone (snake pass and phase product) at its
+    # column tile against the front's bound, the parent checkout's front
+    # (--parent) and cuDNN's conv_transpose1d on the snake'd input
+    # (channels first, layout changes untimed).
+    for label, b, t, cin, cout, s in DECODER_BLOCK_CASES if part in (None, "codec") else ():
+        x = normal(b, t, cin).to(bf16)
         a0 = alpha(cin)
-        bound_ = (2 * s * cout) ** -0.5
-        w3 = phase_weights(uniform(2 * s, cin, cout, lo=-bound_, hi=bound_).to(bf16), s).contiguous()
+        lim = (2 * s * cout) ** -0.5
+        wt = uniform(2 * s, cin, cout, lo=-lim, hi=lim).to(bf16)
+        w3 = phase_weights(wt, s).contiguous()
         bias3 = normal(cout, scale=0.5).repeat(s)
         rus = [resunit_params(cout) for _ in range(3)]
         # the transposed conv takes 2 taps per output sample; the units' work
         # is 3 K1s at the output rate; x read once, the output written once
-        tconv_flops = 2 * t * s * cin * cout * 2
-        units_flops, _ = resunit_work(1, t * s, cout)
-        weight_bytes = 2 * s * cin * cout * 2 + 3 * 8 * cout * cout * 2
-        compare("decoder_block", f"s{s} T{t} C{cin}->{cout}",
+        front_flops, front_bytes = front_work(b, t, cin, cout, s)
+        units_flops, _ = resunit_work(b, t * s, cout)
+        weight_bytes = 2 * 2 * cin * s * cout + 3 * 8 * cout * cout * 2
+        compare("decoder_block", label,
                 lambda: ops.fused_decoder_block(x, a0, w3, bias3, rus, s),
                 lambda: ops.decoder_block_reference(x, a0, w3, bias3, rus, stride=s),
                 {"bias dropped": lambda: ops.decoder_block_reference(
                     x, a0, w3, bias3 * 0, rus, stride=s),
                  "alpha0 = 1": lambda: ops.decoder_block_reference(
                     x, a0 * 0 + 1, w3, bias3, rus, stride=s)},
-                (tconv_flops + 3 * units_flops, 2 * t * cin + 2 * t * s * cout + weight_bytes))
+                (front_flops + 3 * units_flops,
+                 2 * b * t * cin + 2 * b * t * s * cout + weight_bytes))
+        front_tile = ops.decoder_block.decoder_block_tile(b, t, cin, s * cout, s, sms)
+        front_ms = median_ms(lambda: ops.decoder_block.tconv_phase(x, a0, w3, bias3, s))
+        front_bound, front_by = bound(front_flops, front_bytes)
+        parent_ms = None
+        if parent_front is not None:
+            parent_ms = median_ms(lambda: parent_front(x, a0, w3, bias3, s))
+        sx = ops.snake(x, a0).transpose(1, 2).contiguous()
+        wct, bt = wt.permute(1, 2, 0).contiguous(), bias3[:cout].to(bf16)
+        tconv_ms = median_ms(lambda: F.conv_transpose1d(sx, wct, bt, stride=s, padding=s // 2))
+        cases["decoder_block"][-1].update(tile=front_tile, front_ms=front_ms,
+                                          front_bound_ms=front_bound,
+                                          parent_front_ms=parent_ms, conv_transpose1d_ms=tconv_ms)
+        print(f"kernel decoder_block {label}: front (snake pass + phase product) at tile "
+              f"{front_tile} {front_ms:.4f} ms, bound {front_bound:.4f} ({front_by}), front / bound "
+              f"{front_ms / front_bound:.2f}; parent front "
+              f"{'n/a (no --parent)' if parent_ms is None else f'{parent_ms:.4f} ms'}; "
+              f"F.conv_transpose1d (cuDNN) {tconv_ms:.4f} ms as information (not library_ms: "
+              f"no snake, no units); front / it {front_ms / tconv_ms:.3f}", flush=True)
+        del x, sx
+    if part == "codec":
+        return cases
     # K3: t2s (masked canvas), the length predictor, s2a without and with a
     # key mask. The t2s and s2a masks also cover the first 70 keys, so every
     # row's first KV tile is fully masked. The library call is SDPA on the
@@ -1215,7 +1264,7 @@ def source_faults() -> int:
         return [sys.executable, "chip_smoke.py", FAULT_MODES.get(source, "--attention-kernels")]
 
     print("source faults: the sources as they are (must pass)", flush=True)
-    for source in ("attention.cu", "qdense.cu", "resunit.cu"):
+    for source in ("attention.cu", "qdense.cu", "conv_gemm.cuh"):
         if subprocess.run(child(source), cwd=root, timeout=600).returncode != 0:
             fail(f"the {child(source)[-1]} cases reject the sources as they are")
     passed = []
@@ -1253,8 +1302,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     mode = parser.add_mutually_exclusive_group()
     mode.add_argument("--source-faults", action="store_true",
-                      help="plant SOURCE_FAULTS in copies of K1's, K3's, K4's, K5's and "
-                           "K6's sources; each must be rejected")
+                      help="plant SOURCE_FAULTS in copies of K1's and K2's, K3's, K4's, "
+                           "K5's and K6's sources; each must be rejected")
     mode.add_argument("--attention-kernels", action="store_true",
                       help="only the K3-with-LSE/K4 and ragged K6 cases of the kernel "
                            "phase; exit 3 when one is outside its limits")
@@ -1262,8 +1311,11 @@ def main() -> int:
                       help="only the K5 cases of the kernel phase; exit 3 when one is "
                            "outside its limits")
     mode.add_argument("--codec-kernels", action="store_true",
-                      help="only K1's one-request cases of the kernel phase; exit 3 when "
-                           "one is outside its limits")
+                      help="only K1's one-request cases and K2's cases of the kernel phase; "
+                           "exit 3 when one is outside its limits")
+    parser.add_argument("--parent", default=None, metavar="DIR",
+                        help="another checkout of this repository whose K2 front to time "
+                             "beside this one's in K2's cases")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False; this smoke run needs an NVIDIA GPU")
@@ -1276,9 +1328,15 @@ def main() -> int:
     torch.set_grad_enabled(False)
     part = ("attention" if args.attention_kernels else "int8" if args.int8_kernels
             else "codec" if args.codec_kernels else None)
+    parent_front = None
+    if args.parent is not None:
+        from pathlib import Path
+
+        from edm_tts_tpu_torch.profile_decoder_block import parent_front as build_parent_front
+        parent_front = build_parent_front(Path(args.parent))
     if part is not None:
         try:
-            kernel_phase(torch, ops, part)
+            kernel_phase(torch, ops, part, parent_front)
         except CheckFailed as e:
             print(e.code, file=sys.stderr, flush=True)
             return 3
@@ -1313,7 +1371,7 @@ def main() -> int:
     print(f"build: {lib_path.name} in {time.perf_counter() - t0:.2f} s", flush=True)
 
     # 3. kernels against their plain versions
-    cases = kernel_phase(torch, ops)
+    cases = kernel_phase(torch, ops, parent_front=parent_front)
 
     # 4. end to end at full width
     t0 = time.perf_counter()

@@ -2,7 +2,8 @@
 // (attention_bwd.cu) and K6 (attn_variants.cu): TMA copies of 64-row tiles
 // of a (B, T, H, D) bf16 tensor into swizzled shared memory, completed on
 // mbarriers, and the scan of the key mask into 64-key tiles. K5 (qdense.cu)
-// and K1 (resunit.cu) use its mbarrier, TMA and tensor-map helpers.
+// and the codec GEMM of K1 and K2 (conv_gemm.cuh) use its mbarrier, TMA and
+// tensor-map helpers.
 //
 // A tile is 64 rows (time steps of one batch row and head) x DP bf16 (D
 // padded to 32 or 64). The tensor map views the tensor as 4-D (D, H, T, B),

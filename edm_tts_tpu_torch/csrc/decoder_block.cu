@@ -9,85 +9,83 @@
 // stages, so the split computes the same block. Fusing all four stages into
 // one pass per tile is later work.
 //
-// What bounds it on the H100: the transposed conv is a k=3 product
-// (C_in -> s*C_out) of 2*T*3*C_in*s*C_out FLOP (59 GFLOP for s=4, 384->192
-// at T=20002) over T*(C_in + s*C_out)*2 bytes of activations, so it is
-// compute-bound and runs on the tensor cores.
+// What bounds it on the H100: out[q*s + r, c] = fr[q, r*C_out + c] with
+// fr[q] = sum_m snake(x)[q + m - 1] @ w3[m] + bias3, a (T, s*C_out) product
+// of 3 taps over C_in. One of each phase's three taps is zero
+// (phase_weights: the phases r < s/2 use taps 0 and 1, the others taps 1
+// and 2), so the real work is 2 taps: 2*T*2*C_in*s*C_out FLOP, 23.6 GFLOP
+// for s=4, 384->192 at T=20002 (24 us at the tensor cores' 989 TFLOP/s),
+// over T*(C_in + s*C_out)*2 bytes of activations (47 MB, 14 us). At s=2,
+// 192->96, T=80008 the bytes (61 MB, 18 us) bound it, not the products
+// (11.8 GFLOP, 12 us).
 //
-// Design: out[q*s + r, c] = fr[q, r*C_out + c] with fr[q] = sum_m
-// snake(x)[q + m - 1] @ w3[m], so the (T, s*C_out) product written row-major
-// IS the interleaved (T*s, C_out) output: the phase interleave costs
-// nothing. One block per (batch row, 16*RB-frame tile) holds the snake'd
-// window (tile + 1 frame each side) in shared memory and streams w3 from L2.
-#include "common.cuh"
+// Design: two launches on one stream.
+//   1. snake_kernel (conv_gemm.cuh): s1 = bf16(snake(x, alpha0)) into a
+//      scratch.
+//   2. tconv_gemm_kernel: the phase product as an implicit GEMM on wgmma
+//      (conv_gemm.cuh): M = the T frames of a batch row, N = s*C_out, K =
+//      taps x C_in. The A tile of tap m comes from row t0 + m - 1 of s1
+//      through a 3-D tensor map (C_in, T, B), whose zero fill outside
+//      [0, T) is the conv's edge; w3 (3, C_in, N) comes MN-major through a
+//      map (N, C_in, 3). A block of BN columns wholly below half = (s/2)*C_out
+//      runs taps 0 and 1 only, one wholly above taps 1 and 2, one across
+//      both all three. The epilogue adds bias3 and stores bf16 16 bytes a
+//      thread along the rows. The (T, s*C_out) product written row-major
+//      IS the interleaved (T*s, C_out) output: the phase interleave costs
+//      nothing.
+#include "conv_gemm.cuh"
 
 namespace edm {
 
-template <int RB>
-__global__ void __launch_bounds__(kThreads) tconv_phase_kernel(
-    const bf16* __restrict__ x, const float* __restrict__ a0,
-    const bf16* __restrict__ w3, const float* __restrict__ bias3,
-    bf16* __restrict__ out, int T, int Cin, int N) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int BT = RB * 16;
-  constexpr int W = BT + 2;
-  bf16* win = reinterpret_cast<bf16*>(smem);
-  float* scratch = reinterpret_cast<float*>(smem + align128((size_t)W * Cin * 2));
-
-  const int t0 = blockIdx.x * BT;
-  const bf16* xb = x + (size_t)blockIdx.y * T * Cin;
-  bf16* ob = out + (size_t)blockIdx.y * T * N;
-
-  // window row r holds frame t0 - 1 + r; frames outside [0, T) read zero
-  for (int e = threadIdx.x; e < W * Cin; e += kThreads) {
-    const int r = e / Cin, c = e - r * Cin;
-    const int t = t0 - 1 + r;
-    float v = 0.0f;
-    if (t >= 0 && t < T) v = snake(__bfloat162float(xb[(size_t)t * Cin + c]), a0[c]);
-    win[e] = __float2bfloat16(v);
-  }
-  __syncthreads();
-
-  tile_conv<RB>(win, Cin, w3, 3, 1, Cin, N, scratch, [&](int r, int c, float v) {
-    const int t = t0 + r;
-    if (t < T) ob[(size_t)t * N + c] = __float2bfloat16(v + bias3[c]);
-  });
+template <int BN>
+__global__ void __launch_bounds__(256, ConvCfg<BN>::kMinBlocks) tconv_gemm_kernel(
+    const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap wmap,
+    const float* __restrict__ bias, const float* __restrict__ alpha,
+    const bf16* __restrict__ res, bf16* __restrict__ out, int T, int Cin, int N, int dil,
+    int half) {
+  extern __shared__ unsigned char smem_raw[];
+  conv_gemm<BN, 3, kPhase>(smem_aligned(smem_raw), &amap, &wmap, bias, alpha, res, out, T, Cin,
+                           N, dil, half);
 }
 
-static size_t tconv_smem(int rb, int Cin) {
-  return align128((size_t)(rb * 16 + 2) * Cin * 2) + kWarps * 256 * 4;
-}
-
-template <int RB>
+template <int BN>
 static cudaError_t launch_tconv(const void* x, const void* a0, const void* w3,
-                                const void* bias3, void* out, int B, int T,
-                                int Cin, int N, cudaStream_t stream) {
-  const size_t smem = tconv_smem(RB, Cin);
-  cudaError_t err = cudaFuncSetAttribute(
-      tconv_phase_kernel<RB>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((T + RB * 16 - 1) / (RB * 16), B);
-  tconv_phase_kernel<RB><<<grid, kThreads, smem, stream>>>(
-      (const bf16*)x, (const float*)a0, (const bf16*)w3, (const float*)bias3,
-      (bf16*)out, T, Cin, N);
-  return cudaGetLastError();
+                                const void* bias3, void* s1, void* out, int B, int T, int Cin,
+                                int N, int half, cudaStream_t stream) {
+  CUtensorMap s1m, w3m;
+  cudaError_t err = map_3d(&s1m, s1, Cin, T, B, kConvBM);
+  if (err == cudaSuccess) err = map_3d(&w3m, w3, N, Cin, 3, 64);
+  if (err == cudaSuccess) err = launch_snake(x, a0, s1, (size_t)B * T, Cin, stream);
+  if (err == cudaSuccess)
+    err = launch_conv_gemm<BN>(tconv_gemm_kernel<BN>, s1m, w3m, bias3, nullptr, nullptr, out, B,
+                               T, Cin, N, 1, half, stream);
+  return err;
 }
 
 }  // namespace edm
 
-// x: (B, T, Cin) bf16; a0: (Cin,) f32; w3: (3, Cin, N) bf16 phase weights
-// with N = s*Cout; bias3: (N,) f32 (the bias tiled s times);
-// out: (B, T, N) bf16 == (B, T*s, Cout). Cin % 16 == N % 16 == 0.
+// x, s1: (B, T, Cin) bf16 (s1 is scratch); a0: (Cin,) f32; w3: (3, Cin, N)
+// bf16 phase weights with N = stride*Cout; bias3: (N,) f32 (the bias tiled
+// stride times); out: (B, T, N) bf16 == (B, T*stride, Cout). x, s1, w3 and
+// out 16-byte aligned; Cin % 16 == 0, Cout % 16 == 0, even stride; bn
+// (output columns per block) 64, 96, 128, 192 or 256. Returns a cudaError_t.
 extern "C" int edm_tconv_phase(const void* x, const void* a0, const void* w3,
-                               const void* bias3, void* out, int B, int T,
-                               int Cin, int N, void* stream) {
+                               const void* bias3, void* s1, void* out, int B, int T, int Cin,
+                               int N, int stride, int bn, void* stream) {
   using namespace edm;
   cudaGetLastError();  // a stale error must not be reported as this launch's
-  if (Cin % 16 != 0 || N % 16 != 0 || T < 1 || B < 1) return (int)cudaErrorInvalidValue;
+  if (Cin < 16 || Cin % 16 != 0 || stride < 2 || stride % 2 != 0 || N % stride != 0 ||
+      (N / stride) % 16 != 0 || T < 1 || B < 1 || B > 65535 ||
+      (T + kConvBM - 1) / kConvBM > 65535)
+    return (int)cudaErrorInvalidValue;
+  const int half = stride / 2 * (N / stride);
   cudaStream_t s = (cudaStream_t)stream;
-  if (tconv_smem(4, Cin) <= (size_t)kMaxSmem)
-    return (int)launch_tconv<4>(x, a0, w3, bias3, out, B, T, Cin, N, s);
-  if (tconv_smem(1, Cin) <= (size_t)kMaxSmem)
-    return (int)launch_tconv<1>(x, a0, w3, bias3, out, B, T, Cin, N, s);
-  return (int)cudaErrorInvalidValue;
+  switch (bn) {
+    case 64: return (int)launch_tconv<64>(x, a0, w3, bias3, s1, out, B, T, Cin, N, half, s);
+    case 96: return (int)launch_tconv<96>(x, a0, w3, bias3, s1, out, B, T, Cin, N, half, s);
+    case 128: return (int)launch_tconv<128>(x, a0, w3, bias3, s1, out, B, T, Cin, N, half, s);
+    case 192: return (int)launch_tconv<192>(x, a0, w3, bias3, s1, out, B, T, Cin, N, half, s);
+    case 256: return (int)launch_tconv<256>(x, a0, w3, bias3, s1, out, B, T, Cin, N, half, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -1,7 +1,7 @@
 // Warpgroup matrix multiply (wgmma) helpers for Hopper (sm_90a): products
 // of a 64-row A tile held in registers (WgmmaRS, K5: qdense.cu) or in
-// shared memory (WgmmaSS, K1: resunit.cu) with a B tile in shared memory,
-// accumulated in f32 registers.
+// shared memory (WgmmaSS, K1 and K2: conv_gemm.cuh) with a B tile in
+// shared memory, accumulated in f32 registers.
 //
 // WgmmaRS<N>::run(d, a, desc) issues wgmma.mma_async m64nNk16 bf16 x bf16
 // -> f32, d += A (64 x 16) * B (16 x N). Its operands:
@@ -19,10 +19,11 @@
 //   adesc: A as 64 rows of 16 k values (K-major), a tile of 128-byte rows
 //      written by TMA with 128-byte swizzle (sw128_desc);
 //   bdesc: B as 16 rows of N values ("MN-major", the product's imm-trans-b
-//      = 1): N / 64 chunks of 64 columns, each a tile of 128-byte rows (one
-//      k row: 64 columns) written by TMA with 128-byte swizzle, the chunks
-//      8192 bytes apart (sw128_mn_desc: 64-row chunks); the k-th 16-row
-//      slice starts at addr + 2048 k;
+//      = 1): ceil(N / 64) chunks of 64 columns (N 96 reads the first 32 of
+//      the second), each a tile of 128-byte rows (one k row: 64 columns)
+//      written by TMA with 128-byte swizzle, the chunks 8192 bytes apart
+//      (sw128_mn_desc: 64-row chunks); the k-th 16-row slice starts at
+//      addr + 2048 k;
 //   d: as above.
 // The product runs asynchronously: wgmma_fence orders register writes
 // before it, wgmma_commit closes a group of products, wgmma_wait<n> waits
@@ -170,6 +171,27 @@ struct WgmmaSS<64> {
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(adesc), "l"(bdesc), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaSS<96> {
+  static __device__ __forceinline__ void run(float (&d)[48], uint64_t adesc, uint64_t bdesc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+        "}, %48, %49, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
         : "l"(adesc), "l"(bdesc), "r"(1));
   }
 };

@@ -76,14 +76,20 @@ def build() -> Path:
     out = BUILD_DIR / f"libedm_kernels_{_digest()}.so"
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    return build_sources(_sources(), out)
+
+
+def build_sources(sources: list[Path], out: Path) -> Path:
+    """Compile ``sources`` (each in its own nvcc process, all at once) and
+    link them into the shared library ``out``; returns ``out``."""
+    out.parent.mkdir(parents=True, exist_ok=True)
     tag = f"{out.stem}.{os.getpid()}"
-    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
-    tmp = BUILD_DIR / f"{tag}.tmp.so"
+    objs = [out.parent / f"{tag}.{src.stem}.o" for src in sources]
+    tmp = out.parent / f"{tag}.tmp.so"
     nvcc = _nvcc()
     try:
         _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
-              for src, obj in zip(_sources(), objs)])
+              for src, obj in zip(sources, objs)])
         _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
         os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
     finally:
@@ -99,7 +105,7 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.edm_resunit.argtypes = [ptr] * 9 + [i32] * 5 + [ptr]
-    lib.edm_tconv_phase.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
+    lib.edm_tconv_phase.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
     lib.edm_attention.argtypes = [ptr] * 6 + [i32] * 7 + [ptr]
     lib.edm_attention_bwd.argtypes = [ptr] * 10 + [i32] * 6 + [ptr]
     lib.edm_int8_dense.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]

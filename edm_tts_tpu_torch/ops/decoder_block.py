@@ -12,8 +12,10 @@ times. ``y[q] = sum_m snake(x)[q + m - 1] @ w3[m] + bias3`` is ``(T,
 s*C_out)``, and read row-major it already is the interleaved ``(T*s,
 C_out)`` output.
 
-On the card K2 runs in two parts: its own kernel does snake and the phase
-product, then the three residual units run as K1 launches
+On the card K2 runs in two parts: its front (``tconv_phase``: a snake pass
+and the phase product as an implicit GEMM on warpgroup MMA, in blocks of
+128 frames x ``decoder_block_tile`` columns that skip the taps that are
+zero for all their columns), then the three residual units as K1 launches
 (ops/resunit.py). Each K1 launch zero-pads outside ``[0, T*s)``, which is
 what the Pallas kernel's re-zeroing between stages does, so the two parts
 compute the same block.
@@ -21,11 +23,15 @@ compute the same block.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
-from edm_tts_tpu_torch.kernels import launches, refuse_grad
+from edm_tts_tpu_torch.kernels import H100_SMS, launches, refuse_grad, sm_count
 from edm_tts_tpu_torch.kernels.build import check_launch, library
+from edm_tts_tpu_torch.ops.attention import _aligned
+from edm_tts_tpu_torch.ops import resunit
 from edm_tts_tpu_torch.ops.resunit import fused_residual_unit, resunit_reference
 from edm_tts_tpu_torch.ops.snake import snake
 
@@ -37,6 +43,9 @@ def phase_weights(kernel: torch.Tensor, stride: int) -> torch.Tensor:
 
     ``out[s*q + r] = sum_m x[q + m - 1] @ w3[m][:, r]`` (the derivation in
     edm_tts_tpu/ops/convolution.py::conv_transpose1d_phases, p = s // 2).
+    The phases ``r < s - p`` read taps 0 and 1, the others taps 1 and 2, so
+    ``w3[2]`` is zero in the columns below ``p*C_out`` and ``w3[0]`` from
+    there on (``phase_taps``).
     """
     k, cin, cout = kernel.shape
     s = stride
@@ -52,6 +61,13 @@ def phase_weights(kernel: torch.Tensor, stride: int) -> torch.Tensor:
             w3[1, :, r] = kernel[r + p]      # x[q]
             w3[2, :, r] = kernel[r + p - s]  # x[q+1]
     return w3.reshape(3, cin, s * cout)
+
+
+def phase_taps(n0: int, n1: int, half: int) -> range:
+    """The taps of ``w3`` that are nonzero somewhere in columns ``[n0, n1)``
+    (``half = (s/2)*C_out``): 0 and 1 below ``half``, 1 and 2 from there
+    on, all three across it. K2's blocks run exactly these."""
+    return range(1 if n0 >= half else 0, 2 if n1 <= half else 3)
 
 
 def tconv_phase_reference(x, alpha0, w3, bias3):
@@ -79,39 +95,104 @@ def decoder_block_reference(x, alpha0, w3, bias3, ru_params, *, stride: int):
     return y
 
 
-def fused_decoder_block(x, alpha0, w3, bias3, ru_params, stride: int):
-    """Decoder block through K2 (+ K1) on the card, the plain version on CPU.
+# output columns per block of K2's phase product (the wgmma N tile)
+DECODER_BLOCK_TILES = (64, 96, 128, 192, 256)
+DECODER_BLOCK_ROWS = 128  # frames per block
+# the tile model's time per 64-channel step of a block and per block beyond
+# its steps: K1's fit (ops/resunit.py; the same GEMM), with the 96-column
+# step between its 64 and 128. On an H100 SXM it picks the fastest tile of
+# profile_decoder_block's sweep at run (a)'s two blocks (s4: 128, s2: 96)
+_STEP_COST = {**resunit._STEP_COST, 96: 605}
+_BLOCK_COST = resunit._BLOCK_COST
 
-    On CUDA: ``x`` contiguous bf16 ``(B, T, C_in)``; ``w3`` contiguous bf16
-    ``(3, C_in, s*C_out)``; ``alpha0`` and ``bias3`` contiguous f32; ``C_in``
-    and ``C_out`` multiples of 16; the residual units' parameters as
-    ``fused_residual_unit`` takes them. K2 has no backward: on CUDA it
-    raises when autograd would need a gradient through it.
+
+@functools.lru_cache(maxsize=None)
+def decoder_block_tile(b: int, t: int, cin: int, n: int, stride: int,
+                       sms: int = H100_SMS) -> int:
+    """K2's column tile for the front of a ``(B, T, C_in)`` block with
+    ``n = s*C_out`` product columns: the tile of ``DECODER_BLOCK_TILES``
+    with the least modelled time. Blocks of up to 128 columns fit two on an
+    SM, wider ones one; a wave is one block per slot; a block takes one
+    step of 64 input channels per tap of ``phase_taps`` per 64 channels of
+    C_in, and a fixed cost. A tile that straddles the halves runs three
+    taps instead of two; narrow tiles lose to their copies, wide ones to
+    the waves they leave idle."""
+    half = stride // 2 * (n // stride)
+
+    def cost(bn: int) -> tuple[float, int]:
+        per_sm = 2 if bn <= 128 else 1
+        col_tiles = -(-n // bn)
+        taps = sum(len(phase_taps(j * bn, min(j * bn + bn, n), half)) for j in range(col_tiles))
+        blocks = col_tiles * -(-t // DECODER_BLOCK_ROWS) * b
+        waves = -(-blocks // (sms * per_sm))
+        steps = taps / col_tiles * -(-cin // 64)
+        return waves * per_sm * (steps * _STEP_COST[bn] + _BLOCK_COST[per_sm]), bn
+
+    return min(DECODER_BLOCK_TILES, key=cost)
+
+
+def tconv_phase(x, alpha0, w3, bias3, stride: int, *, tile: int | None = None):
+    """K2's front, snake -> phase transposed conv, ``(B, T, C_in)`` ->
+    ``(B, T*s, C_out)``: the kernel on the card, the plain version on the CPU.
+
+    On CUDA: ``x`` contiguous bf16; ``w3`` contiguous bf16 ``(3, C_in,
+    s*C_out)``; ``alpha0`` and ``bias3`` contiguous f32; ``C_in`` and
+    ``C_out`` multiples of 16. ``tile`` forces the column tile (one of
+    ``DECODER_BLOCK_TILES``; else ``decoder_block_tile``'s choice); the CPU
+    path ignores it. No backward: on CUDA it raises when autograd would
+    need a gradient through it.
     """
     if not x.is_cuda:
-        return decoder_block_reference(x, alpha0, w3, bias3, ru_params, stride=stride)
-    refuse_grad("fused_decoder_block", x, alpha0, w3, bias3, *(p for u in ru_params for p in u))
+        b, t, _ = x.shape
+        return tconv_phase_reference(x, alpha0, w3, bias3).reshape(b, t * stride, -1)
+    refuse_grad("fused_decoder_block", x, alpha0, w3, bias3)
     if x.dtype != torch.bfloat16 or x.dim() != 3 or not x.is_contiguous():
         raise ValueError(f"fused_decoder_block: x must be contiguous bf16 (B, T, C), "
                          f"got {x.dtype} {tuple(x.shape)}")
     b, t, cin = x.shape
     n = w3.shape[-1]
-    if w3.shape != (3, cin, n) or n % stride or cin % 16 or (n // stride) % 16:
+    if (w3.shape != (3, cin, n) or stride < 2 or stride % 2 or n % stride or cin % 16
+            or (n // stride) % 16):
         raise ValueError(f"fused_decoder_block: C_in={cin}, w3 {tuple(w3.shape)}, stride "
-                         f"{stride} (need w3 (3, C_in, s*C_out), channels % 16 == 0)")
+                         f"{stride} (need w3 (3, C_in, s*C_out), even s, channels % 16 == 0)")
     for name, p, dtype, shape in (("w3", w3, torch.bfloat16, (3, cin, n)),
                                   ("alpha0", alpha0, torch.float32, (cin,)),
                                   ("bias3", bias3, torch.float32, (n,))):
         if p.dtype != dtype or p.shape != shape or not p.is_contiguous() or p.device != x.device:
             raise ValueError(f"fused_decoder_block: {name} must be contiguous {dtype} "
                              f"{shape} on {x.device}")
+    if w3.data_ptr() % 16:
+        raise ValueError("fused_decoder_block: w3 must start on 16 bytes")
+    if tile is None:
+        tile = decoder_block_tile(b, t, cin, n, stride, sm_count(x.device.index or 0))
+    elif tile not in DECODER_BLOCK_TILES:
+        raise ValueError(f"fused_decoder_block: tile must be one of {DECODER_BLOCK_TILES} or "
+                         f"None, got {tile}")
+    x = _aligned(x)
+    s1 = torch.empty_like(x)
     y = torch.empty((b, t * stride, n // stride), dtype=x.dtype, device=x.device)
     err = library().edm_tconv_phase(
-        x.data_ptr(), alpha0.data_ptr(), w3.data_ptr(), bias3.data_ptr(), y.data_ptr(),
-        b, t, cin, n, torch.cuda.current_stream(x.device).cuda_stream,
+        x.data_ptr(), alpha0.data_ptr(), w3.data_ptr(), bias3.data_ptr(), s1.data_ptr(),
+        y.data_ptr(), b, t, cin, n, stride, tile,
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     check_launch(err, "fused_decoder_block")
     launches["decoder_block"] += 1
+    return y
+
+
+def fused_decoder_block(x, alpha0, w3, bias3, ru_params, stride: int):
+    """Decoder block through K2 (+ K1) on the card, the plain version on CPU.
+
+    On CUDA: the front's arguments as ``tconv_phase`` takes them, the
+    residual units' parameters as ``fused_residual_unit`` takes them. K2
+    has no backward: on CUDA it raises when autograd would need a gradient
+    through it.
+    """
+    if not x.is_cuda:
+        return decoder_block_reference(x, alpha0, w3, bias3, ru_params, stride=stride)
+    refuse_grad("fused_decoder_block", x, alpha0, w3, bias3, *(p for u in ru_params for p in u))
+    y = tconv_phase(x, alpha0, w3, bias3, stride)
     for d, p in zip(DILATIONS, ru_params):
         y = fused_residual_unit(y, *p, d)
     return y

@@ -15,7 +15,9 @@ K6's four variants at both query tiles, padded head depths (D 8, 20) and
 bit-equal reruns; K1 at every N tile of its two products, at T below one
 128-row tile and one past it, dilations whose halo is wider than the
 sequence or the tile, B > 1 against each row alone, C 16 to 768 and
-bit-equal reruns; and remat gradients on the card.
+bit-equal reruns; K2's front at every column tile, ragged frame counts,
+tiles across the halves of the phase columns, B > 1 against each row
+alone and bit-equal reruns; and remat gradients on the card.
 On the GPU machine (no jax there, so the suite's conftest cannot load):
 
     python3 -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
@@ -153,6 +155,76 @@ def test_decoder_block_kernel_matches_plain(dev, b, t, s, cin, cout):
     assert launches == {"resunit": 3, "decoder_block": 1, "attention": 0, "attention_bwd": 0,
                         "int8_dense": 0, "attn_variants": 0}
     _check(out, ops.decoder_block_reference(x, a0, w3, bias3, rus, stride=s))
+
+
+def _front_case(dev, b, t, s, cin, cout, seed):
+    """x, alpha0, w3, bias3 of a K2 front, drawn as chip_smoke.py draws them."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(b, t, cin, generator=gen, device=dev).bfloat16()
+    wt = (torch.rand(2 * s, cin, cout, generator=gen, device=dev) * 2 - 1) * (2 * s * cout) ** -0.5
+    w3 = phase_weights(wt.bfloat16(), s).contiguous()
+    return x, _alpha(cin, dev, gen), w3, _bias(cout, dev, gen).repeat(s)
+
+
+def _front_reference(x, a0, w3, bias3, s):
+    b, t, _ = x.shape
+    return ops.decoder_block.tconv_phase_reference(x, a0, w3, bias3).reshape(b, t * s, -1)
+
+
+@pytest.mark.parametrize("tile", ops.decoder_block.DECODER_BLOCK_TILES)
+@pytest.mark.parametrize("b,t,s,cin,cout", [
+    (1, 1, 2, 32, 16),      # one frame: both neighbours are the zero fill
+    (2, 5, 4, 64, 96),      # T below one 128-frame tile
+    (1, 129, 2, 192, 192),  # one frame past a tile
+    (2, 130, 4, 48, 16),    # C_in % 64 != 0, N 64
+    (1, 130, 8, 96, 96),    # s 8: N 768, half 384
+])
+def test_decoder_block_front_every_tile_matches_plain(dev, tile, b, t, s, cin, cout):
+    """K2's front (snake pass + phase product) at each column tile, forced,
+    at ragged frame counts and C_out 16 / 96 / 192: the zero fill outside
+    [0, T) is the conv's edge, columns past N and rows past T are never
+    stored, and each block runs the taps its columns need."""
+    x, a0, w3, bias3 = _front_case(dev, b, t, s, cin, cout, t + cin)
+    reset_launches()
+    out = ops.decoder_block.tconv_phase(x, a0, w3, bias3, s, tile=tile)
+    assert launches["decoder_block"] == 1 and launches["resunit"] == 0
+    _check(out, _front_reference(x, a0, w3, bias3, s))
+
+
+@pytest.mark.parametrize("tile,cout", [(64, 96), (128, 96), (256, 96), (64, 16), (128, 48)])
+def test_decoder_block_front_tiles_across_the_halves(dev, tile, cout):
+    """At s 2 a column tile that straddles half = C_out runs all three taps
+    next to tiles that run two: every such layout against the plain version."""
+    n = 2 * cout
+    taps = [len(ops.decoder_block.phase_taps(n0, min(n0 + tile, n), cout))
+            for n0 in range(0, n, tile)]
+    assert 3 in taps
+    x, a0, w3, bias3 = _front_case(dev, 2, 300, 2, 192, cout, tile + cout)
+    _check(ops.decoder_block.tconv_phase(x, a0, w3, bias3, 2, tile=tile),
+           _front_reference(x, a0, w3, bias3, 2))
+
+
+@pytest.mark.parametrize("s,cin,cout", [(2, 192, 96), (4, 384, 192), (2, 32, 16)])
+@pytest.mark.parametrize("t", [1, 5, 129, 130])
+def test_decoder_block_front_batch_rows_do_not_bleed(dev, s, cin, cout, t):
+    """B = 3 at the tile the wrapper picks, each row held against that row
+    alone: a tap's frame t0 - 1 or t0 + 128 never comes from the
+    neighbouring row."""
+    x, a0, w3, bias3 = _front_case(dev, 3, t, s, cin, cout, t)
+    out = ops.decoder_block.tconv_phase(x, a0, w3, bias3, s)
+    for i in range(3):
+        _check(out[i:i + 1], _front_reference(x[i:i + 1], a0, w3, bias3, s))
+
+
+def test_decoder_block_front_is_deterministic(dev):
+    """No atomics and no split sums: reruns give the same bits at every tile."""
+    x, a0, w3, bias3 = _front_case(dev, 2, 700, 4, 384, 192, 1)
+    for tile in ops.decoder_block.DECODER_BLOCK_TILES:
+        first = ops.decoder_block.tconv_phase(x, a0, w3, bias3, 4, tile=tile)
+        for _ in range(3):
+            assert torch.equal(ops.decoder_block.tconv_phase(x, a0, w3, bias3, 4, tile=tile), first)
+    with pytest.raises(ValueError):
+        ops.decoder_block.tconv_phase(x, a0, w3, bias3, 4, tile=32)  # not compiled
 
 
 @pytest.mark.parametrize("b,tq,tk,h,d", [(2, 37, 37, 3, 24), (1, 130, 130, 2, 64), (2, 64, 200, 4, 8),
