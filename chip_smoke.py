@@ -13,9 +13,12 @@ Phases, each reported on its own line:
      paths in bf16 (K5 at one request's linears and at those of a served
      engine call in bucket 4, each at the tile its wrapper picks, beside
      the bf16 matmul on the dequantized weight; K1 at one request's 12
-     units and those of a served call in bucket 4 and of a one-row call,
+     units, those of a served call in bucket 4 and of a one-row call, and
+     the codec encoder's 12 on path (g)'s 10 s and 3 s prompts (C 64-512,
+     up to 160160 rows) and on its batch of 4 (B4, up to 160160 rows),
      each at the N tile its wrapper picks, beside cuDNN's conv1d and a
-     matmul of its two convolutions, as information; K2 at one request's
+     matmul of its two convolutions, as information; K3 also at
+     HuBERT-large's shapes (B1 T500 H16 D64, and B4 with a key mask); K2 at one request's
      two blocks, its front alone at the column tile its wrapper picks
      beside its bound, cuDNN's conv_transpose1d and, with ``--parent
      DIR``, another checkout's front): relative l2 and max
@@ -44,7 +47,27 @@ Phases, each reported on its own line:
      the int8 s2a's logits against the bf16 ones and the masked decode
      against exact-size decodes; prints each request's latency and the engine's
      wall per second of audio;
-  6. training (d): the s2a recipe of configs/injection_conformer/
+  6. prompt tokenization (g): HuBERT-large to layer 18 with 1024 centroids
+     (profile_tokenization.full_width_semantic) and the s2a's default codec,
+     bf16, seeded, in the engine of (c) behind a TTSServer: a 3 s and a 10 s
+     seeded prompt at 24 kHz registered with POST /speakers (200 each; the
+     resampler runs), then one /synthesize with the 10 s speaker, checked
+     as (c) checks its WAVs; per prompt: codec frames = HuBERT frames =
+     get_code_lengths, codes in range, 12 K1 and 18 K3 launches and no
+     other kernel, every K1 shape among phase 3's cases; the served codes
+     equal to AudioTokenizer.run_steps' on the request's own resampled,
+     padded and normalized audio, and that run's encoder latents and
+     HuBERT's layer-18 states against the same models through the plain
+     versions (bf16, relative l2 and the shares of identical semantic ids
+     and level-0 codes within their limits) and the ids' flip shares
+     against the plain f32 models; the batched path (compute_codes_batch
+     on 4 prompts of 3-10 s with the attention mask) with the same launch,
+     shape and plain-version checks over each row's frames (the level-0
+     codes' share printed, not held), and each row's semantic ids and codes
+     of all levels against its exact-size call; prints the wall and device
+     time per second of prompt audio, the busy share and each part's time
+     (profile_tokenization);
+  7. training (d): the s2a recipe of configs/injection_conformer/
      train_config.yaml (d1024, 16 layers, B32 x 768 frames in 4
      micro-batches, bf16 autocast, f32 weights and AdamW state) through
      train.run_s2a.main_from_dict on seeded token shards and a seeded random
@@ -56,7 +79,7 @@ Phases, each reported on its own line:
      trainable tensor moved and 16 K3 and 16 K4 launches per micro-batch;
      prints seconds per step, frames per second, peak device memory and
      the final checkpoint's size and save time;
-  7. training (e): the t2s recipe of configs/text_to_semantic_w_length/
+  8. training (e): the t2s recipe of configs/text_to_semantic_w_length/
      train_config.yaml (hidden 384, 12 + 4 layers, heads 8 x 24, B32, lr
      2.5e-4, bf16 autocast) through train.run_t2s.main_from_dict on 2100
      seeded items (length-bucketed batches), 6 steps with a 2-step warmup;
@@ -65,13 +88,13 @@ Phases, each reported on its own line:
      moved, 16 K3 and 16 K4 launches per step and at least two canvas
      lengths; prints seconds per step, canvas tokens per second and peak
      device memory;
-  8. gradient checkpointing: one full-width s2a micro-batch (B8 x 768,
+  9. gradient checkpointing: one full-width s2a micro-batch (B8 x 768,
      dropout 0.1, a fixed generator) under the remat policies "full",
      "mha" and "dots" against none: gradients within REMAT_GRAD_REL_L2_TOL,
      32 K3 launches under "full" and 16 under the others, peak memory of
      each; then 2 steps of the s2a recipe as B32 in one micro-batch under
      "mha" (step time, peak memory);
-  9. ablation (f): K6's variants and query tiles at B32 T1408 H16 D24
+ 10. ablation (f): K6's variants and query tiles at B32 T1408 H16 D24
      through profile_attn_variants.sweep, with its launches counted.
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
@@ -82,8 +105,8 @@ There is no CPU fallback: without a CUDA device the script fails.
 plants each of SOURCE_FAULTS in a copy of K1's and K2's (the GEMM they
 share), K3's, K4's, K5's or K6's CUDA source (the package and this script
 copied into a temporary directory, built there) and runs the cases of
-phase 3 that hold that kernel on it: K1's one-request cases and K2's
-(``--codec-kernels``), K5's (``--int8-kernels``),
+phase 3 that hold that kernel on it: K1's one-request and encoder cases
+and K2's (``--codec-kernels``), K5's (``--int8-kernels``),
 or the K3-with-LSE/K4 and ragged K6 ones (``--attention-kernels``); each
 exits 3 when a case is outside its limits.
 The sources as they are must pass first, and it exits 1 if any fault
@@ -92,6 +115,8 @@ passes.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import io
 import itertools
 import json
@@ -149,6 +174,24 @@ T2S_TRAIN_ITEMS = 2100
 # the dropout generator's restore is wrong
 REMAT_DROPOUT = 0.1
 REMAT_GRAD_REL_L2_TOL = 1e-3
+# (g): the tokenizer through the kernels against the same bf16 models through
+# the plain versions on the card. The encoder latents' and HuBERT's layer-18
+# states' relative l2; the share of frames whose semantic id and level-0 code
+# agree (a CPU proxy at hidden 256, 18 layers, puts bf16 against f32 at a
+# relative l2 of 0.013 with 96 % of the ids and 99.6 % of the level-0 codes
+# equal; the kernels and the plain versions, both bf16, round at fewer
+# points than that, and the limits leave room for the near ties of a
+# random init); the batched path's ids, and its codes of all levels over
+# all frames but the last (which sees the canvas's padding), against each
+# row's exact-size call (the same kernels on the same row; the codec's
+# strided convs may take another cuDNN algorithm at B4)
+TOKENIZE_REL_L2_TOL = 2e-2
+TOKENIZE_SEMANTIC_SAME = 0.9
+TOKENIZE_ACOUSTIC_SAME = 0.95
+BATCH_SEMANTIC_SAME = 0.9
+BATCH_ACOUSTIC_SAME = 0.9
+# the batched path's prompts (seconds at 24 kHz)
+BATCH_PROMPT_SECONDS = (3.0, 5.5, 8.0, 10.0)
 # (f): timed runs per (variant, query tile) of the profiling script's sweep
 ABLATION_RUNS = 10
 
@@ -292,9 +335,11 @@ def kernel_phase(torch, ops, part: str | None = None, parent_front=None) -> dict
     from edm_tts_tpu_torch.profile_qdense import SERVED_CASES as SERVED_INT8_CASES
     from edm_tts_tpu_torch.profile_qdense import int8_work
     from edm_tts_tpu_torch.profile_resunit import CASES as RESUNIT_CASES
+    from edm_tts_tpu_torch.profile_resunit import ENCODER_CASES
     from edm_tts_tpu_torch.profile_resunit import ONE_ROW_CASES as ONE_ROW_RESUNIT_CASES
     from edm_tts_tpu_torch.profile_resunit import SERVED_CASES as SERVED_RESUNIT_CASES
-    from edm_tts_tpu_torch.profile_resunit import resunit_work
+    from edm_tts_tpu_torch.profile_resunit import encoder_units, resunit_work
+    from edm_tts_tpu_torch.profile_tokenization import PROMPT_SECONDS, encoder_samples
     from edm_tts_tpu_torch.utils.devtime import bound, median_ms
 
     dev = "cuda"
@@ -492,14 +537,21 @@ def kernel_phase(torch, ops, part: str | None = None, parent_front=None) -> dict
 
     # K1: the 12 units of one request's 500-frame decode (profile_resunit.
     # CASES: C 768 at T 4000 ... C 96 at T 160016; the masked decode runs the
-    # tail blocks' units as K1 too) and, not under --codec-kernels, the 12 of
-    # one served engine call (SERVED_CASES: bucket 4 on a 512-frame canvas)
-    # and the 12 of a one-row call on that canvas, each at the N tile the
-    # wrapper picks. No one PyTorch call computes the unit; as information
+    # tail blocks' units as K1 too), the codec encoder's 12 on a 10 s prompt
+    # (ENCODER_CASES: C 64 at T 160160 ... C 512 at T 4004) and, not under
+    # --codec-kernels, the 12 of one served engine call (SERVED_CASES: bucket
+    # 4 on a 512-frame canvas), the 12 of a one-row call on that canvas, the
+    # encoder's 12 on path (g)'s other prompts (3 s: C 64 at T 48160 ...) and
+    # on its masked batch (B4 on the longest row's canvas, C 64 at T 160160
+    # ...), each at the N tile the wrapper picks. No one PyTorch call computes the unit; as information
     # each case also times cuDNN's conv1d of the dilated conv plus the
     # matmul of the k=1 conv (layouts made untimed).
-    k1_cases = RESUNIT_CASES + (SERVED_RESUNIT_CASES + ONE_ROW_RESUNIT_CASES
-                                if part is None else ())
+    tokenize_cases = tuple(
+        case for s_ in PROMPT_SECONDS for case in encoder_units(encoder_samples(s_), 1)
+        if case not in ENCODER_CASES) + encoder_units(
+            max(encoder_samples(s_) for s_ in BATCH_PROMPT_SECONDS), len(BATCH_PROMPT_SECONDS))
+    k1_cases = RESUNIT_CASES + ENCODER_CASES + (
+        SERVED_RESUNIT_CASES + ONE_ROW_RESUNIT_CASES + tokenize_cases if part is None else ())
     for label, b, t, c, d in k1_cases if part in (None, "codec") else ():
         x = normal(b, t, c).to(bf16)
         p = resunit_params(c)
@@ -600,6 +652,30 @@ def kernel_phase(torch, ops, part: str | None = None, parent_front=None) -> dict
                 (4 * h * t * n_keys * d, 4 * t * h * d * 2 + t, h * t * n_keys),
                 ("scaled_dot_product_attention", lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, attn_mask=sdpa_mask)))
+    # K3 at HuBERT-large's layers (H16 D64): one 10 s prompt's 500 frames
+    # unmasked, and path (g)'s batch of 4 prompts of 3-10 s on a 500-frame
+    # canvas with the key mask; the library call as above
+    hubert_k3 = (("hubert B1 T500 H16 D64", 1, None),
+                 ("hubert B4 T500 H16 D64 mask", 4, (150, 275, 400, 500)))
+    for label, b, lens in hubert_k3 if part is None else ():
+        t, h, d = 500, 16, 64
+        q, k, v = (normal(b, t, h, d).to(bf16) for _ in range(3))
+        pos = torch.arange(t, device=dev)[None]
+        mask = None if lens is None else pos < torch.tensor(lens, device=dev)[:, None]
+        valid = pos.expand(b, t) >= 0 if mask is None else mask
+        tail = valid & (pos < t // 64 * 64)  # the keys of the last, partial tile dropped
+        faults = {"tail tile dropped": lambda: ops.mha_reference(q, k, v, mask=tail)}
+        if mask is not None:
+            faults["mask ignored"] = lambda: ops.mha_reference(q, k, v)
+        qt, kt, vt = (z.transpose(1, 2).contiguous() for z in (q, k, v))
+        sdpa_mask = None if mask is None else mask[:, None, None, :]
+        n_keys = int(valid.sum())  # summed over the batch rows
+        compare("attention", f"{label}, {tile(b, h, t)}",
+                lambda: ops.flash_mha(q, k, v, mask=mask),
+                lambda: ops.mha_reference(q, k, v, mask=mask), faults,
+                (4 * h * t * n_keys * d, 4 * b * t * h * d * 2 + b * t, h * t * n_keys),
+                ("scaled_dot_product_attention", lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=sdpa_mask)))
     # K5: every int8 linear of one request (profile_qdense.CASES: s2a at
     # M = 150 + 512, t2s at M = 128 + 4 + 1250, the length predictor at
     # M = 1 + 128, a batch of 4 s2a rows) and of one served engine call in
@@ -667,6 +743,41 @@ def decode_plain(torch, ops, codec, codes):
     return torch.tanh(final(snake(x)))
 
 
+def check_wav(engine, label, status, sr, pcm, want_samples=None) -> float:
+    """A served WAV: HTTP 200, the engine's rate, int16, ``want_samples``
+    samples (else a whole number of frames), not silent; returns its rms."""
+    import numpy as np
+
+    hop = engine.hop_length
+    rms = float(np.sqrt(np.mean(pcm.astype(np.float64) ** 2))) if pcm.size else 0.0
+    if status != 200 or sr != engine.sample_rate or pcm.dtype != np.int16:
+        fail(f"{label}: HTTP {status}, {sr} Hz, {pcm.dtype}")
+    if want_samples is not None and pcm.shape != (want_samples,):
+        fail(f"{label}: {pcm.shape} samples, want ({want_samples},)")
+    if want_samples is None and (pcm.size == 0 or pcm.size % hop):
+        fail(f"{label}: {pcm.size} samples is not a whole number of {hop}-sample frames")
+    if not rms > 0:
+        fail(f"{label}: silent WAV")
+    return rms
+
+
+def post_json(base: str, path: str, body: dict, timeout: float = 600):
+    """(status, response bytes, seconds) of a JSON POST; an HTTP error's
+    status and body are returned, not raised."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"{base}{path}", data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            status, data = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        status, data = e.code, e.read()
+    return status, data, time.perf_counter() - t0
+
+
 def block_int8_sites(cfg) -> int:
     """How many of a Conformer block's nine linears pass the K5 shape gate."""
     from edm_tts_tpu_torch.ops import quantizable_shape
@@ -678,15 +789,17 @@ def block_int8_sites(cfg) -> int:
     return sum(quantizable_shape(k, n) for k, n in shapes)
 
 
-def served_path(torch, t2s, s2a, dev, smi: str, held: set, held_k1: set) -> dict:
+def served_path(torch, t2s, s2a, semantic, dev, smi: str, held: set, held_k1: set):
     """(c): the int8 models behind TTSEngine -> DynamicBatcher -> TTSServer.
     ``held``: the (M, K, N) at which the kernel phase held K5 against its
     plain version, ``held_k1`` the (B, T, C, dilation) of K1; every shape
-    the concurrent requests launch K5 or K1 at must be one of them."""
+    the concurrent requests launch K5 or K1 at must be one of them.
+    ``semantic``: the engine's semantic tokenizer (path (g) registers
+    speakers through it). Returns (the concurrent requests' launches, the
+    engine)."""
     import urllib.request
     from concurrent.futures import ThreadPoolExecutor
 
-    import numpy as np
     from scipy.io import wavfile
 
     from edm_tts_tpu_torch.kernels import (
@@ -715,7 +828,7 @@ def served_path(torch, t2s, s2a, dev, smi: str, held: set, held_k1: set) -> dict
                            generator=gen, device=dev)
     canvas = s2a.embed_semantic(tokens) + s2a.mask_token
     logits_bf16 = s2a.forward_first_level(canvas)
-    engine = served_engine(t2s, s2a, dev, SEED + 30)
+    engine = served_engine(t2s, s2a, dev, SEED + 30, semantic)
     rel = rel_l2(torch, engine.s2a.forward_first_level(canvas), logits_bf16)
     print(f"served (c) int8 vs bf16 s2a level-0 logits on a {canvas.shape[1]}-frame canvas: "
           f"relative l2 {rel:.4g} (tol {INT8_LOGITS_REL_L2_TOL})", flush=True)
@@ -763,19 +876,6 @@ def served_path(torch, t2s, s2a, dev, smi: str, held: set, held_k1: set) -> dict
         sr, pcm = wavfile.read(io.BytesIO(data))
         return status, sr, pcm, time.perf_counter() - t0
 
-    def check_wav(label, status, sr, pcm, want_samples=None):
-        hop = engine.hop_length
-        rms = float(np.sqrt(np.mean(pcm.astype(np.float64) ** 2))) if pcm.size else 0.0
-        if status != 200 or sr != engine.sample_rate or pcm.dtype != np.int16:
-            fail(f"{label}: HTTP {status}, {sr} Hz, {pcm.dtype}")
-        if want_samples is not None and pcm.shape != (want_samples,):
-            fail(f"{label}: {pcm.shape} samples, want ({want_samples},)")
-        if want_samples is None and (pcm.size == 0 or pcm.size % hop):
-            fail(f"{label}: {pcm.size} samples is not a whole number of {hop}-sample frames")
-        if not rms > 0:
-            fail(f"{label}: silent WAV")
-        return rms
-
     texts = SERVED_TEXTS
     bodies = [{"text": t, "speaker": "spk", "seed": 7} for t in texts]
     bodies[3]["gt_length"] = 500
@@ -793,7 +893,7 @@ def served_path(torch, t2s, s2a, dev, smi: str, held: set, held_k1: set) -> dict
         stats = json.loads(urllib.request.urlopen(f"{base}/stats", timeout=60).read())
         for i, (status, sr, pcm, lat) in enumerate(results):
             want = 500 * engine.hop_length if "gt_length" in bodies[i] else None
-            rms = check_wav(f"request {i}", status, sr, pcm, want)
+            rms = check_wav(engine, f"request {i}", status, sr, pcm, want)
             print(f"served (c) request {i}: {len(texts[i].encode())} text bytes, "
                   f"{pcm.size / sr:.2f} s audio, rms {rms:.1f}, latency {lat:.4f} s "
                   f"(batch window 1.0 s)", flush=True)
@@ -835,7 +935,7 @@ def served_path(torch, t2s, s2a, dev, smi: str, held: set, held_k1: set) -> dict
                                      "long": True, "max_chunk_chars": 120})
         torch.cuda.synchronize()
         counts["long"] = dict(launches)
-        rms = check_wav("long request", status, sr, pcm)
+        rms = check_wav(engine, "long request", status, sr, pcm)
         n_long = len(calls) - calls_before
         want = {k: n_long * expected(False)[k] for k in KERNELS}
         print(f"served (c) long request: {n_chunks} chunks in {n_long} engine call(s), "
@@ -845,6 +945,7 @@ def served_path(torch, t2s, s2a, dev, smi: str, held: set, held_k1: set) -> dict
             fail(f"long request: {n_chunks} chunks, launches {counts['long']} != {want}")
     finally:
         server.shutdown()
+        del engine.synthesize  # the timing wrapper (it holds the engine in a cycle)
 
     # the masked decode of a padded canvas against exact-size decodes
     codec = engine.s2a.acoustic_model
@@ -860,7 +961,243 @@ def served_path(torch, t2s, s2a, dev, smi: str, held: set, held_k1: set) -> dict
               f"relative l2 {rel:.4g} (tol {DECODE_REL_L2_TOL})", flush=True)
         if not rel <= DECODE_REL_L2_TOL:
             fail(f"masked decode row {i} differs from the exact-size decode: {rel}")
-    return counts["concurrent"]
+    return counts["concurrent"], engine
+
+
+@contextlib.contextmanager
+def plain_versions(ops):
+    """The codec's residual units and HuBERT's attention through their plain
+    versions for the block (K1 and K3 swapped out where the models call
+    them); fails if a kernel launches inside it."""
+    import edm_tts_tpu_torch.models.codec.layers as layers_mod
+    import edm_tts_tpu_torch.models.hubert.model as hubert_mod
+    from edm_tts_tpu_torch.kernels import launches
+
+    saved = layers_mod.fused_residual_unit, hubert_mod.mha
+    layers_mod.fused_residual_unit = (
+        lambda x, *p: ops.resunit_reference(x, *p[:-1], dilation=p[-1]))
+    hubert_mod.mha = lambda q, k, v, *, mask=None, implementation="auto": ops.mha_reference(
+        q, k, v, mask=mask)
+    before = dict(launches)
+    try:
+        yield
+    finally:
+        layers_mod.fused_residual_unit, hubert_mod.mha = saved
+    if dict(launches) != before:
+        fail(f"the plain versions launched kernels: {before} -> {dict(launches)}")
+
+
+def tokenization_path(torch, ops, engine, dev, smi: str, held_k1: set) -> dict:
+    """(g): prompt tokenization at full width through ``engine`` (its codec
+    and HuBERT-large, bf16) behind a TTSServer; returns the 10 s prompt's
+    launches."""
+    import base64
+    import copy
+
+    import numpy as np
+    from scipy.io import wavfile
+
+    from edm_tts_tpu_torch.kernels import launches, reset_launches, resunit_shapes
+    from edm_tts_tpu_torch.models.tokenizer import AudioTokenizer
+    from edm_tts_tpu_torch.ops.resample import resample
+    from edm_tts_tpu_torch.profile_tokenization import (
+        PROMPT_SECONDS,
+        PROMPT_SR,
+        device_profile,
+        parts_median,
+        prompt_wav,
+    )
+    from edm_tts_tpu_torch.serving import TTSServer
+
+    tok = engine.tokenizer
+    codec, sem = tok.codec, tok.semantic
+    cfg = codec.config
+    # the oracle: the same weights in f32, run through the plain versions
+    codec32 = copy.deepcopy(codec).float()
+    codec32.pack()
+    tok32 = AudioTokenizer(codec32, copy.deepcopy(sem).float())
+
+    def same(a, b) -> float:
+        return (a == b).float().mean().item()
+
+    def held(label: str, shapes) -> None:
+        """Fail unless every K1 shape of this run was held in phase 3."""
+        for (b, t, c, d), n in sorted(shapes.items()):
+            print(f"tokenize (g) {label}: K1 at B{b} T{t} C{c} dil{d}: {n} launches"
+                  f"{'' if (b, t, c, d) in held_k1 else ' (not among the kernel cases)'}",
+                  flush=True)
+        if not held_k1.issuperset(shapes):
+            fail(f"(g) {label}: K1 shapes {sorted(set(shapes) - held_k1)} were not held "
+                 f"against the plain version")
+
+    def against_plain(label: str, k: dict, p: dict, valid=None) -> None:
+        """Fail unless the kernels' run ``k`` of ``tok.run_steps`` is within
+        the limits of the plain versions' run ``p`` on the same inputs. With
+        ``valid`` (a batch) over each row's first ``valid[i]`` frames (the
+        padding of a canvas is one repeated frame, whose near tie would
+        count hundreds of times), and the level-0 codes' share is printed,
+        not held: at the prompts' flip rate against the plain versions (4-5 %
+        on an H100) its spread over the batch's 1325 frames spans the 0.95
+        limit. The batch's codes are held against each row's exact-size
+        call instead, whose codes are held here."""
+        def cut(x):
+            return x if valid is None else torch.cat([x[i, :n].flatten() for i, n in enumerate(valid)])
+
+        rel_z = rel_l2(torch, cut(k["latents"]), cut(p["latents"]))
+        rel_h = rel_l2(torch, cut(k["states"]), cut(p["states"]))
+        same_sem = same(cut(k["semantic_codes"]), cut(p["semantic_codes"]))
+        same_ac = same(cut(k["acoustic_codes"][:, 0]), cut(p["acoustic_codes"][:, 0]))
+        print(f"tokenize (g) {label}: kernels vs plain versions (bf16): encoder latents "
+              f"relative l2 {rel_z:.4g}, layer-{sem.output_layer} states {rel_h:.4g} (tol "
+              f"{TOKENIZE_REL_L2_TOL}); identical semantic ids {same_sem:.4f} (min "
+              f"{TOKENIZE_SEMANTIC_SAME}), level-0 codes {same_ac:.4f} "
+              f"({'not held' if valid else f'min {TOKENIZE_ACOUSTIC_SAME}'})", flush=True)
+        if not (rel_z <= TOKENIZE_REL_L2_TOL and rel_h <= TOKENIZE_REL_L2_TOL
+                and same_sem >= TOKENIZE_SEMANTIC_SAME
+                and (valid is not None or same_ac >= TOKENIZE_ACOUSTIC_SAME)):
+            fail(f"(g) {label}: the kernel path is off the plain versions: latents {rel_z}, "
+                 f"states {rel_h}, ids {same_sem}, level-0 codes {same_ac}")
+
+    server = TTSServer(engine, max_batch=4, max_wait_ms=50.0).start()
+    base = f"http://{server.host}:{server.port}"
+    counts, flips = {}, {}
+    try:
+        for seconds in PROMPT_SECONDS:
+            name = f"prompt{seconds:.0f}s"
+            wav = prompt_wav(seconds, SEED + 60 + int(seconds))
+            body = {"name": name, "sample_rate": PROMPT_SR,
+                    "pcm_b64": base64.b64encode(wav.astype("<f4").tobytes()).decode()}
+            torch.cuda.synchronize()
+            reset_launches()
+            status, data, lat = post_json(base, "/speakers", body)
+            torch.cuda.synchronize()
+            counts[name], shapes = dict(launches), dict(resunit_shapes)
+            if status != 200 or json.loads(data) != {"ok": True}:
+                fail(f"(g) POST /speakers {name}: HTTP {status} {data[:200]!r}")
+            prompt = engine.prompt(name)
+            ac, sc = prompt.acoustic_codes, prompt.semantic_codes
+            # the request's own steps again, as register_speaker takes them
+            x = resample(torch.from_numpy(wav).to(dev), PROMPT_SR, tok.sample_rate).cpu().numpy()
+            padded, normalized, _ = tok.prepare(x[None])
+            n_code = int(tok.get_code_lengths(padded.shape[-1]))
+            n_hubert = int(sem.config.feature_lengths(padded.shape[-1]))
+            want = no_launches(resunit=3 * len(cfg.encoder_rates),
+                               attention=sem.output_layer)
+            print(f"tokenize (g) {name}: POST /speakers HTTP {status} in {lat:.4f} s; codes "
+                  f"acoustic {tuple(ac.shape)} semantic {tuple(sc.shape)}, frames codec "
+                  f"{ac.shape[-1]} HuBERT {n_hubert} get_code_lengths {n_code}; launches "
+                  f"{counts[name]} expected {want}", flush=True)
+            if not (ac.shape == (1, cfg.n_codebooks, n_code) and sc.shape == (1, n_code)
+                    and n_hubert == n_code):
+                fail(f"(g) {name}: frames codec {tuple(ac.shape)}, HuBERT {n_hubert}, "
+                     f"semantic {tuple(sc.shape)}, get_code_lengths {n_code}")
+            if not (0 <= int(ac.min()) and int(ac.max()) < cfg.codebook_size
+                    and 0 <= int(sc.min()) and int(sc.max()) < sem.cluster_centers.shape[0]):
+                fail(f"(g) {name}: codes out of range")
+            if counts[name] != want:
+                fail(f"(g) {name}: launches {counts[name]} != expected {want}")
+            held(name, shapes)
+
+            # the kernels against the plain versions (bf16), and bf16 against
+            # f32, from the served request's own inputs
+            k = tok.run_steps(normalized, padded)
+            served_equal = (torch.equal(sc, k["semantic_codes"])
+                            and torch.equal(ac, k["acoustic_codes"]))
+            print(f"tokenize (g) {name}: the served codes equal those of tok.run_steps on the "
+                  f"request's resampled, padded and normalized audio: {served_equal}", flush=True)
+            if not served_equal:
+                fail(f"(g) {name}: the served codes differ from the compared run's")
+            with plain_versions(ops):
+                p = tok.run_steps(normalized, padded)
+                f32 = tok32.run_steps(normalized, padded)
+            against_plain(name, k, p)
+            z_k, h_k, z_32, h_32 = k["latents"], k["states"], f32["latents"], f32["states"]
+            codes_32, ids_32 = f32["acoustic_codes"], f32["semantic_codes"]
+            flips[name] = dict(semantic=1 - same(sc, ids_32), acoustic_l0=1 - same(ac[:, 0], codes_32[:, 0]),
+                               acoustic_all=1 - same(ac, codes_32),
+                               rel_l2_latents=rel_l2(torch, z_k, z_32),
+                               rel_l2_hidden=rel_l2(torch, h_k, h_32))
+            print(f"tokenize (g) {name}: bf16 (kernels) vs f32 (plain versions) flip shares: "
+                  f"semantic ids {flips[name]['semantic']:.4f}, level-0 codes "
+                  f"{flips[name]['acoustic_l0']:.4f}, all {cfg.n_codebooks} levels "
+                  f"{flips[name]['acoustic_all']:.4f}; "
+                  f"relative l2 latents {flips[name]['rel_l2_latents']:.4g}, states "
+                  f"{flips[name]['rel_l2_hidden']:.4g} ({smi})", flush=True)
+            del k, p, f32, z_k, h_k, z_32, h_32
+
+            # where the time goes: per part, and the whole tokenization
+            for part, (wall, dev_ms) in parts_median(tok, wav, PROMPT_SR).items():
+                print(f"tokenize (g) {name} part {part}: wall {wall:.3f} ms, CUDA events "
+                      f"{dev_ms:.3f} ms", flush=True)
+            prof = device_profile(lambda: engine.register_speaker(f"{name}-p", wav, PROMPT_SR))
+            print(f"tokenize (g) {name}: register_speaker wall {prof['wall_s']:.4f} s "
+                  f"({prof['wall_s'] / seconds:.5f} s per prompt s), device kernel time "
+                  f"{prof['device_ms']:.3f} ms ({prof['device_ms'] / 1e3 / seconds:.5f} s per "
+                  f"prompt s) in {prof['kernels']} kernels, busy share {prof['busy']:.3f}; port "
+                  f"kernels {prof['port_kernels']} ({smi})", flush=True)
+
+        # one synthesis with the registered 10 s speaker
+        name = f"prompt{max(PROMPT_SECONDS):.0f}s"
+        status, data, lat = post_json(base, "/synthesize", {"text": "A registered voice.",
+                                                           "speaker": name, "seed": 5,
+                                                           "gt_length": 150})
+        sr, pcm = wavfile.read(io.BytesIO(data)) if status == 200 else (0, np.zeros(0, np.int16))
+        rms = check_wav(engine, f"(g) /synthesize with {name}", status, sr, pcm,
+                        150 * engine.hop_length)
+        print(f"tokenize (g) /synthesize with {name}: {pcm.size / sr:.2f} s audio, rms "
+              f"{rms:.1f}, latency {lat:.4f} s", flush=True)
+    finally:
+        server.shutdown()
+
+    # the batched path: 4 prompts of 3-10 s on one padded canvas with
+    # HuBERT's attention mask, through the kernels against the plain
+    # versions on the same inputs, and each row's ids and codes against its
+    # exact-size call
+    prepared = [tok.prepare(resample(torch.from_numpy(prompt_wav(s_, SEED + 70 + i)).to(dev),
+                                     PROMPT_SR, tok.sample_rate).cpu().numpy()[None])
+                for i, s_ in enumerate(BATCH_PROMPT_SECONDS)]
+    lengths = [p_[0].shape[-1] for p_ in prepared]
+    t = max(lengths)
+    padded = np.concatenate([np.pad(p_[0], ((0, 0), (0, t - n))) for p_, n in zip(prepared, lengths)])
+    normalized = np.concatenate([np.pad(p_[1], ((0, 0), (0, t - n)))
+                                 for p_, n in zip(prepared, lengths)])
+    mask = (np.arange(t)[None] < np.array(lengths)[:, None]).astype(np.int32)
+    reset_launches()
+    out = tok.compute_codes_batch(normalized, padded, mask)
+    torch.cuda.synchronize()
+    batch_counts, batch_shapes = dict(launches), dict(resunit_shapes)
+    want = no_launches(resunit=3 * len(cfg.encoder_rates), attention=sem.output_layer)
+    label = f"batch of {len(lengths)}"
+    print(f"tokenize (g) {label} prompts of {list(BATCH_PROMPT_SECONDS)} s on {t} samples with "
+          f"the mask: codes {tuple(out['acoustic_codes'].shape)} "
+          f"{tuple(out['semantic_codes'].shape)}; launches {batch_counts} expected {want}",
+          flush=True)
+    if batch_counts != want:
+        fail(f"(g) batch: launches {batch_counts} != expected {want}")
+    held(label, batch_shapes)
+    k = tok.run_steps(normalized, padded, mask)
+    with plain_versions(ops):
+        p = tok.run_steps(normalized, padded, mask)
+    if not (torch.equal(k["semantic_codes"], out["semantic_codes"])
+            and torch.equal(k["acoustic_codes"], out["acoustic_codes"])):
+        fail("(g) batch: compute_codes_batch and run_steps differ on the same inputs")
+    valid = [int(n) for n in tok.get_code_lengths(np.array(lengths))]
+    against_plain(f"{label} (each row's {valid} frames)", k, p, valid)
+    del k, p
+    sem_shares, ac_shares = [], []
+    for i, ((pad_i, norm_i, _), n) in enumerate(zip(prepared, valid)):
+        alone = tok.compute_codes_batch(norm_i, pad_i)
+        sem_shares.append(same(out["semantic_codes"][i, :n], alone["semantic_codes"][0]))
+        ac_shares.append(same(out["acoustic_codes"][i, :, :n - 1],
+                              alone["acoustic_codes"][0, :, :n - 1]))
+    print(f"tokenize (g) {label}: each row against its exact-size call: identical semantic ids "
+          f"{[round(x, 4) for x in sem_shares]} (min {BATCH_SEMANTIC_SAME}), identical codes of "
+          f"all {cfg.n_codebooks} levels over all frames but the last "
+          f"{[round(x, 4) for x in ac_shares]} (min {BATCH_ACOUSTIC_SAME})", flush=True)
+    if not (min(sem_shares) >= BATCH_SEMANTIC_SAME and min(ac_shares) >= BATCH_ACOUSTIC_SAME):
+        fail(f"(g) batch: row shares semantic {sem_shares}, acoustic {ac_shares}")
+    print(f"tokenize (g) flip shares bf16 vs f32: {json.dumps(flips)}", flush=True)
+    return counts[f"prompt{max(PROMPT_SECONDS):.0f}s"]
 
 
 def write_s2a_shards(path: str) -> None:
@@ -1345,6 +1682,7 @@ def main() -> int:
     from edm_tts_tpu_torch.models.s2a import s2a_sample
     from edm_tts_tpu_torch.models.t2s import t2s_sample
     from edm_tts_tpu_torch.pipeline import e2e_synthesize
+    from edm_tts_tpu_torch.profile_tokenization import full_width_semantic
     from edm_tts_tpu_torch.profile_synthesis import (
         GEN_FRAMES,
         PRED_ITERS,
@@ -1479,27 +1817,38 @@ def main() -> int:
     _, t_dec = timed(lambda: s2a.decode_audio(codes))
     print(f"e2e (a) stages: t2s {t_t2s:.4f} s, s2a {t_s2a:.4f} s, decode {t_dec:.4f} s", flush=True)
 
-    # 5. (c) the served path with int8 weights (quantizes the models in place)
+    # 5. (c) the served path with int8 weights (quantizes the models in place),
+    # its engine holding (g)'s HuBERT-large
+    t0 = time.perf_counter()
+    semantic = full_width_semantic(dev, SEED + 50)
+    print(f"models: HuBERT-large to layer {semantic.output_layer} with "
+          f"{semantic.cluster_centers.shape[0]} centroids, "
+          f"{sum(p.numel() for p in semantic.parameters()) / 1e6:.1f}M parameters in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
     held = {(c["m"], c["k"], c["n"]) for c in cases["int8_dense"]}
     held_k1 = {(c["b"], c["t"], c["c"], c["dilation"]) for c in cases["resunit"]}
-    counts_c = served_path(torch, t2s, s2a, dev, smi, held, held_k1)
-    del t2s, s2a
+    counts_c, engine = served_path(torch, t2s, s2a, semantic, dev, smi, held, held_k1)
+
+    # 6. (g) prompt tokenization through the same engine
+    counts_g = tokenization_path(torch, ops, engine, dev, smi, held_k1)
+    del t2s, s2a, semantic, engine
+    gc.collect()  # so that no model of (a)-(g) counts in (d)'s peak memory
     torch.cuda.empty_cache()
 
-    # 6. (d) s2a training at full width
+    # 7. (d) s2a training at full width
     counts_d = training_path(torch, ops, dev, smi)
 
-    # 7. (e) t2s training at full width
+    # 8. (e) t2s training at full width
     counts_e = t2s_training_path(torch, ops, dev, smi)
 
-    # 8. gradient checkpointing on the full-width s2a
+    # 9. gradient checkpointing on the full-width s2a
     remat_path(torch, dev, smi)
 
-    # 9. (f) the attention-variant ablation through the profiling script
+    # 10. (f) the attention-variant ablation through the profiling script
     counts_f, _ = ablation_path(torch, smi)
 
-    by_path = {"a": counts_a, "b": counts_b, "c": counts_c, "d": counts_d, "e": counts_e,
-               "f": counts_f}
+    by_path = {"a": counts_a, "b": counts_b, "c": counts_c, "g": counts_g, "d": counts_d,
+               "e": counts_e, "f": counts_f}
     record = {"kernels": []}
     for name in KERNELS:
         cs = cases[name]

@@ -10,8 +10,9 @@ strictly: every key is used and every parameter and buffer is filled.
 checkpoint (the card's smoke run): same shapes and scales as a fresh model,
 deterministic for a given seed and device.
 
-Both end by laying the codec decoder's weights out once as its kernels take
-them (``Decoder.pack``).
+Both end by laying the codec's weights out once as its kernels take them
+(``Encoder.pack`` and ``Decoder.pack``). HuBERT's weights come in HF's
+format through ``models.hubert.convert.load_hf_state_dict``.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import torch
 from torch import nn
 
 from edm_tts_tpu_torch.models.codec.decoder import Decoder
+from edm_tts_tpu_torch.models.codec.encoder import Encoder
 from edm_tts_tpu_torch.models.codec.layers import Snake, WNConv1d, WNConvTranspose1d
 from edm_tts_tpu_torch.models.conformer.conformer import ChanLayerNorm
 from edm_tts_tpu_torch.models.s2a.model import InjectionConformer, _StackedLogits
@@ -73,12 +75,13 @@ def load_reference_state_dict(module: nn.Module, sd: Mapping[str, np.ndarray]) -
             raise ValueError(f"{key}: checkpoint shape {tuple(t.shape)} != "
                              f"model shape {tuple(own[key].shape)}")
     module.load_state_dict(folded, strict=True)
-    _pack_decoders(module)
+    _pack_codecs(module)
 
 
-def _pack_decoders(module: nn.Module) -> None:
+def _pack_codecs(module: nn.Module) -> None:
+    """``pack`` every codec encoder and decoder inside ``module``."""
     for m in module.modules():
-        if isinstance(m, Decoder):
+        if isinstance(m, (Encoder, Decoder)):
             m.pack()
 
 
@@ -115,7 +118,8 @@ def init_random_weights(module: nn.Module, seed: int) -> None:
             uniform(m.bias, fan_in)
         elif isinstance(m, nn.Conv1d):
             uniform(m.weight, m.weight.shape[1] * m.weight.shape[2])
-            m.bias.zero_()
+            if m.bias is not None:
+                m.bias.zero_()
         elif isinstance(m, nn.Linear):
             m.weight.normal_(0.0, m.in_features ** -0.5, generator=gen(m.weight))
             if m.bias is not None:
@@ -130,7 +134,7 @@ def init_random_weights(module: nn.Module, seed: int) -> None:
         elif isinstance(m, ChanLayerNorm):
             for p in own:
                 p.fill_(1.0)
-        elif isinstance(m, nn.LayerNorm):
+        elif isinstance(m, (nn.LayerNorm, nn.GroupNorm)):
             m.weight.fill_(1.0)
             m.bias.zero_()
         elif isinstance(m, TextToSemantic):
@@ -143,4 +147,4 @@ def init_random_weights(module: nn.Module, seed: int) -> None:
     missed = [n for n, p in module.named_parameters() if id(p) not in done]
     if missed:
         raise RuntimeError(f"init_random_weights: no rule for {missed[:5]}")
-    _pack_decoders(module)
+    _pack_codecs(module)

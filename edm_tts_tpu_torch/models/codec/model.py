@@ -1,13 +1,18 @@
-"""The neural codec, decode side (port of edm_tts_tpu/models/codec/model.py).
+"""The neural codec (port of edm_tts_tpu/models/codec/model.py): waveform
+<-> 12-level RVQ codes at 50 Hz.
 
-Layouts as in the JAX package: codes ``(B, Q, T50)``; features
-``(B, T50, D)``; audio ``(B, T50 * hop + 16, 1)`` (the stride-5 block adds 2
-samples before the last two upsamplings).
+Layouts as in the JAX package: audio in ``(B, T, 1)`` with T a hop
+multiple (``pad_audio_to_hop``); codes ``(B, Q, T50)``; features
+``(B, T50, D)``; decoded audio ``(B, T50 * hop + 16, 1)`` (the stride-5
+block adds 2 samples before the last two upsamplings).
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from edm_tts_tpu_torch.models.codec.config import CodecConfig
@@ -26,6 +31,24 @@ class Codec(nn.Module):
         self.quantizer = ResidualVQ(config.latent_dim, config.n_codebooks,
                                     config.codebook_size, config.codebook_dim, device=device)
         self.decoder = Decoder(config.latent_dim, config.decoder_dim, config.decoder_rates, **kw)
+
+    def pack(self) -> None:
+        """Lay the encoder's and decoder's weights out as their kernels take
+        them (after every load, and after a move to another device)."""
+        self.encoder.pack()
+        self.decoder.pack()
+
+    def encode(self, audio: torch.Tensor, n_quantizers: int | None = None) -> dict[str, torch.Tensor]:
+        """``(B, T, 1)`` waveform -> the quantizer's ``z``, ``codes`` and
+        ``latents`` (``ResidualVQ.forward``) and the encoder output ``z_e``."""
+        z = self.encoder(audio)
+        out = self.quantizer(z, n_quantizers)
+        out["z_e"] = z
+        return out
+
+    def encode_to_codes(self, audio: torch.Tensor, n_quantizers: int | None = None) -> torch.Tensor:
+        """``(B, T, 1)`` waveform -> ``(B, Q, T / hop)`` int64 codes."""
+        return self.quantizer(self.encoder(audio), n_quantizers)["codes"]
 
     def decoded_length(self, n_frames: int) -> int:
         t = n_frames
@@ -50,3 +73,9 @@ class Codec(nn.Module):
     def codes_to_features_unreduced(self, codes: torch.Tensor) -> torch.Tensor:
         """``(B, Q', T)`` -> per-level features ``(B, Q', T, D)`` (f32)."""
         return self.quantizer.from_codes_unreduced(codes)
+
+
+def pad_audio_to_hop(audio: torch.Tensor, hop_length: int) -> torch.Tensor:
+    """Right-pad a waveform ``(..., T, 1)`` with zeros to the next hop multiple."""
+    t = audio.shape[-2]
+    return F.pad(audio, (0, 0, 0, math.ceil(t / hop_length) * hop_length - t))

@@ -1,11 +1,15 @@
-"""Residual VQ decode side (port of edm_tts_tpu/models/codec/rvq.py).
+"""Residual VQ (port of edm_tts_tpu/models/codec/rvq.py, inference side).
 
 ``quantizers.{i}`` mirror the reference's per-level modules: a 1x1
 ``in_proj`` (folded weight norm over the In axis), an ``N x dc`` codebook
-and a 1x1 ``out_proj``. The slice needs codes -> features only
-(``embed_codes``, ``from_codes``, ``from_codes_unreduced``). The VQ math
+and a 1x1 ``out_proj``. Decode: ``embed_codes``, ``from_codes``,
+``from_codes_unreduced``. Encode: ``forward`` (each level in-projects the
+residual, takes the nearest L2-normalized codebook vector and subtracts its
+out-projection), ``from_latents`` and ``continuous_to_codes``. The VQ math
 stays f32 whatever dtype the rest of the model runs in: its parameters are
-always created in f32.
+always created in f32, and the distance products run without TF32.
+Train-time quantizer dropout and the commitment/codebook losses are not
+ported.
 """
 
 from __future__ import annotations
@@ -14,6 +18,19 @@ import torch
 from torch import nn
 
 from edm_tts_tpu_torch.models.codec.layers import WNConv1d
+from edm_tts_tpu_torch.ops.kmeans import sq_distances
+from edm_tts_tpu_torch.ops.precision import exact_f32
+
+
+def _l2n(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """torch ``F.normalize`` over the last axis: ``x / max(||x||, eps)``."""
+    return x / torch.clamp(torch.sqrt((x * x).sum(-1, keepdim=True)), min=eps)
+
+
+def _nearest(e: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
+    """Index of the nearest L2-normalized codebook row to each normalized
+    ``e`` row (``||e||^2 - 2 e.c + ||c||^2``, as the JAX package)."""
+    return sq_distances(_l2n(e), _l2n(codebook)).argmin(-1)
 
 
 class VectorQuantize(nn.Module):
@@ -24,11 +41,20 @@ class VectorQuantize(nn.Module):
         self.out_proj = WNConv1d(codebook_dim, input_dim, 1, **kw)
         self.codebook = nn.Embedding(codebook_size, codebook_dim, **kw)
 
+    def project_in(self, x: torch.Tensor) -> torch.Tensor:
+        """``(..., D)`` -> ``(..., dc)``."""
+        return x @ self.in_proj.weight[:, :, 0].t() + self.in_proj.bias
+
+    def project_out(self, z: torch.Tensor) -> torch.Tensor:
+        """``(..., dc)`` -> ``(..., D)``."""
+        return z @ self.out_proj.weight[:, :, 0].t() + self.out_proj.bias
+
 
 class ResidualVQ(nn.Module):
     def __init__(self, input_dim: int = 1024, n_codebooks: int = 12,
                  codebook_size: int = 1024, codebook_dim: int = 8, *, device=None):
         super().__init__()
+        self.codebook_dim = codebook_dim
         self.quantizers = nn.ModuleList(
             VectorQuantize(input_dim, codebook_size, codebook_dim, device=device)
             for _ in range(n_codebooks)
@@ -40,6 +66,54 @@ class ResidualVQ(nn.Module):
         w = torch.stack([q.out_proj.weight[:, :, 0].t() for q in levels])
         b = torch.stack([q.out_proj.bias for q in levels])
         return w, b
+
+    def forward(self, z: torch.Tensor, n_quantizers: int | None = None) -> dict[str, torch.Tensor]:
+        """Quantize ``(B, T, D)`` latents through every level (inference).
+
+        Returns ``z`` (B, T, D) f32, the out-projections summed over the
+        levels q < ``(n_quantizers or Q) + 1`` (the reference's off-by-one,
+        kept as the JAX package keeps it), ``codes`` (B, Q, T) int64 of
+        every level, and ``latents`` (B, T, Q, dc), each level's
+        in-projection before quantization.
+        """
+        residual = z.float()
+        z_q = torch.zeros_like(residual)
+        active = (n_quantizers or len(self.quantizers)) + 1
+        codes, latents = [], []
+        with torch.autocast(residual.device.type, enabled=False), exact_f32():
+            for i, q in enumerate(self.quantizers):
+                z_e = q.project_in(residual)
+                idx = _nearest(z_e, q.codebook.weight)
+                # the straight-through sum's value, rounded as the JAX package rounds it
+                out = q.project_out(z_e + (q.codebook.weight[idx] - z_e))
+                if i < active:
+                    z_q = z_q + out
+                residual = residual - out
+                codes.append(idx)
+                latents.append(z_e)
+        return {"z": z_q, "codes": torch.stack(codes, dim=1),
+                "latents": torch.stack(latents, dim=2)}
+
+    def continuous_to_codes(self, latents: torch.Tensor) -> torch.Tensor:
+        """``(B, T, D)`` features -> ``(B, Q, T)`` codes (a full VQ pass)."""
+        return self(latents)["codes"]
+
+    def from_latents(self, latents: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        """``(B, T, Q' * dc)`` projected latents -> ``(z_q, z_p, codes)``.
+
+        Each level's slice is matched, L2-normalized, against its codebook
+        (no in-projection: the latents are in codebook space already);
+        ``z_q`` (B, T, D), ``z_p`` (B, T, Q', dc), ``codes`` (B, Q', T).
+        """
+        nq = latents.shape[-1] // self.codebook_dim
+        parts = latents.float().reshape(*latents.shape[:-1], nq, self.codebook_dim)
+        with torch.autocast(parts.device.type, enabled=False), exact_f32():
+            codes = torch.stack([_nearest(parts[..., i, :], q.codebook.weight)
+                                 for i, q in enumerate(self.quantizers[:nq])], dim=-1)
+            z_p = self.embed_codes(codes.transpose(1, 2)).transpose(1, 2)  # (B, T, Q', dc)
+            w, b = self._out_proj(nq)
+            z_q = torch.einsum("btqc,qcd->btd", z_p, w) + b.sum(0)
+        return z_q, z_p, codes.transpose(1, 2)
 
     def embed_codes(self, codes: torch.Tensor) -> torch.Tensor:
         """``(B, Q', T)`` codes -> raw codebook vectors ``(B, Q', T, dc)``."""

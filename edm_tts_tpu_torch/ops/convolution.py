@@ -9,6 +9,9 @@ arithmetic is torch's ``Conv1d`` / ``ConvTranspose1d`` (floor and
 
 from __future__ import annotations
 
+import math
+from typing import Sequence
+
 import torch
 import torch.nn.functional as F
 
@@ -65,3 +68,25 @@ def conv_transpose1d(
         padding=padding, output_padding=output_padding,
     )
     return y.transpose(1, 2)
+
+
+def conv1d_output_length(length, kernel_size: int, stride: int = 1, padding: int = 0,
+                         dilation: int = 1):
+    """torch ``Conv1d`` output length: ``floor((T + 2p - d(k-1) - 1) / s + 1)``.
+
+    Works on ints and on integer arrays or tensors.
+    """
+    return (length + 2 * padding - dilation * (kernel_size - 1) - 1) // stride + 1
+
+
+def encoder_output_length(length, strides: Sequence[int]):
+    """Frames the codec encoder's conv stack gives for ``length`` samples.
+
+    The stem (k=7, pad 3), the residual units and the final k=3 conv keep
+    the length; only each block's strided conv (k=2s, pad ceil(s/2))
+    changes it.
+    """
+    out = length
+    for s in strides:
+        out = conv1d_output_length(out, 2 * s, stride=s, padding=math.ceil(s / 2))
+    return out

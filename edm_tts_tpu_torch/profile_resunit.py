@@ -3,8 +3,10 @@
     python3 -m edm_tts_tpu_torch.profile_resunit [--out FILE]
 
 For each case of ``CASES`` (the 12 residual units of one 500-frame decode,
-run (a)) and ``SERVED_CASES`` (the 12 of one served engine call in bucket
-4: four rows on a 512-frame canvas, through the ``valid_frames`` decode):
+run (a)), ``SERVED_CASES`` (the 12 of one served engine call in bucket
+4: four rows on a 512-frame canvas, through the ``valid_frames`` decode)
+and ``ENCODER_CASES`` (the 12 of the codec encoder on one 10 s prompt,
+path (g)):
 K1's device time at the N tile ``ops.resunit.resunit_tile`` picks, held
 against the plain version (relative l2 within 2^-6), and its split over
 K1's three launches (the snake of x, the k=7 product, the k=1 product:
@@ -32,6 +34,7 @@ import torch.nn.functional as F
 from edm_tts_tpu_torch.models.codec import CodecConfig
 from edm_tts_tpu_torch.models.codec.layers import ResidualUnit
 from edm_tts_tpu_torch.ops import resunit as resunit_ops
+from edm_tts_tpu_torch.ops.convolution import conv1d_output_length
 from edm_tts_tpu_torch.utils.devtime import bound, median_ms
 
 DILATIONS = (1, 3, 9)
@@ -58,6 +61,24 @@ SERVED_CASES = decoder_units(512, 4)
 # a one-row engine call on the same canvas (a served request with its own
 # length); chip_smoke.py holds K1 at these too
 ONE_ROW_CASES = decoder_units(512, 1)
+
+
+def encoder_units(samples: int, batch: int, cfg: CodecConfig = CodecConfig()) -> tuple:
+    """(label, B, T, C, dilation) of every residual unit of the codec encoder
+    on ``samples`` padded samples: block i runs at C = encoder_dim * 2^i and
+    the length its strided predecessors leave (k = 2s, padding ceil(s/2))."""
+    cases, t = [], samples
+    for i, s in enumerate(cfg.encoder_rates):
+        c = cfg.encoder_dim * 2 ** i
+        cases += [(f"enc B{batch} T{t} C{c} dil{d}", batch, t, c, d) for d in DILATIONS]
+        t = conv1d_output_length(t, 2 * s, stride=s, padding=-(-s // 2))
+    return tuple(cases)
+
+
+# path (g): the encoder on one 10 s prompt, 160000 samples at 16 kHz after
+# the tokenizer's alignment pad (+80 on each side): C 64 at T 160160 ... C 512
+# at T 4004
+ENCODER_CASES = encoder_units(160160, 1)
 
 
 def resunit_work(b: int, t: int, c: int) -> tuple[int, int]:
@@ -154,8 +175,10 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(smi, flush=True)
-    rows = profile(CASES + SERVED_CASES, args.seed)
-    for name, part in (("run (a)", rows[:len(CASES)]), ("served", rows[len(CASES):])):
+    rows = profile(CASES + SERVED_CASES + ENCODER_CASES, args.seed)
+    n_a, n_c = len(CASES), len(CASES) + len(SERVED_CASES)
+    for name, part in (("run (a)", rows[:n_a]), ("served", rows[n_a:n_c]),
+                       ("encoder (g)", rows[n_c:])):
         lib = sum(r["conv1d_ms"] + r["matmul_ms"] for r in part)
         print(f"sum over the {len(part)} {name} cases: K1 {sum(r['ms'] for r in part):.4f} ms, "
               f"library {lib:.4f} ms, bound {sum(r['bound_ms'] for r in part):.4f} ms ({smi})",

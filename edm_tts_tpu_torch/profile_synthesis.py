@@ -188,16 +188,19 @@ def _profile_t2s_training(dev, seed: int, out: Path | None) -> None:
 
 
 @torch.no_grad()
-def served_engine(t2s: TextToSemantic, s2a: InjectionConformer, device, seed: int) -> TTSEngine:
+def served_engine(t2s: TextToSemantic, s2a: InjectionConformer, device, seed: int,
+                  semantic=None) -> TTSEngine:
     """An int8 engine over the models (quantized in place) with a random
-    150-frame speaker prompt registered as "spk".
+    150-frame speaker prompt registered as "spk"; ``semantic`` (a
+    ``SemanticTokenizerHubert``, not quantized) lets it register speakers
+    from wavs.
 
     Random weights predict lengths of a frame or two; the length head is
     set to predict ~480 frames (~10 s), the length of a long sentence.
     """
     t2s.length_pred_head.weight.mul_(0.02)
     t2s.length_pred_head.bias.fill_(math.log(480.0))
-    engine = TTSEngine.from_models(t2s, s2a, device=device, quantize="int8",
+    engine = TTSEngine.from_models(t2s, s2a, semantic, device=device, quantize="int8",
                                    pred_iters=PRED_ITERS, s2a_steps=STEPS, max_speech_len=1250)
     cfg = s2a.cfg
     gen = torch.Generator().manual_seed(seed)

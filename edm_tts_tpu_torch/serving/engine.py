@@ -9,10 +9,13 @@ waveform of its exact-size run. On the card the Conformer attention runs as
 kernel K3, the decoder's residual units as K1, and with ``quantize="int8"``
 every quantized linear as K5.
 
-Speaker prompts are registered once as codes (``register_speaker_codes``)
-and reused by every request. Tokenizing a prompt from a wav (HuBERT, the
-codec encoder, k-means) and loading model directories are not ported yet:
-the engine is built from in-memory models with ``from_models``.
+Speaker prompts are tokenized once and reused by every request:
+``register_speaker`` takes a wav (resampled to 16 kHz on the engine's
+device, then the codec encoder with its RVQ and HuBERT with k-means through
+``AudioTokenizer``: K1 on the encoder's residual units and K3 in HuBERT's
+attention on the card), ``register_speaker_codes`` takes precomputed codes.
+The engine is built from in-memory models with ``from_models``; loading
+model directories is not ported yet.
 
 Randomness: one CPU ``torch.Generator`` seeded with the request's seed
 drives both samplers. It cannot reproduce the JAX package's
@@ -30,6 +33,8 @@ import torch
 from edm_tts_tpu_torch.models import quantize as quantization
 from edm_tts_tpu_torch.models.s2a import InjectionConformer, s2a_sample
 from edm_tts_tpu_torch.models.t2s import TextToSemantic, t2s_sample
+from edm_tts_tpu_torch.models.tokenizer import AudioTokenizer, SemanticTokenizerHubert
+from edm_tts_tpu_torch.ops.resample import resample
 from edm_tts_tpu_torch.serving.chunking import default_chunk_chars, join_waveforms, split_text
 from edm_tts_tpu_torch.utils.bucketing import bucket_batch, bucket_length
 
@@ -45,6 +50,7 @@ class TTSEngine:
         self,
         t2s: TextToSemantic,
         s2a: InjectionConformer,
+        semantic: SemanticTokenizerHubert | None = None,
         *,
         device: str | torch.device = "cuda",
         quantize: str = "none",
@@ -64,8 +70,11 @@ class TTSEngine:
                                              quantize_t2s or quantize)
         self.s2a = quantization.quantize_s2a(s2a.to(self.device).eval(),
                                              quantize_s2a or quantize)
-        # the decoder's kernel layouts are plain tensors that .to() leaves behind
-        self.s2a.acoustic_model.decoder.pack()
+        # the codec's kernel layouts are plain tensors that .to() leaves behind
+        self.s2a.acoustic_model.pack()
+        if semantic is not None:
+            semantic = semantic.to(self.device).eval()
+        self.tokenizer = AudioTokenizer(self.s2a.acoustic_model, semantic)
         self.pred_iters = pred_iters
         self.s2a_steps = s2a_steps
         self.temperature = temperature
@@ -76,9 +85,16 @@ class TTSEngine:
         self._speakers: dict[str, SpeakerPrompt] = {}
 
     @classmethod
-    def from_models(cls, t2s: TextToSemantic, s2a: InjectionConformer, **opts) -> "TTSEngine":
+    def from_models(cls, t2s: TextToSemantic, s2a: InjectionConformer,
+                    semantic: SemanticTokenizerHubert | None = None, **opts) -> "TTSEngine":
         """An engine over in-memory models, moved to ``device`` (default the
         card; the CPU only when asked) and quantized in place.
+
+        ``semantic`` (HuBERT with its k-means centroids) and the s2a's codec
+        (``s2a.acoustic_model``) tokenize prompts for ``register_speaker``;
+        without it speakers come as codes (``register_speaker_codes``). The
+        tokenizer runs in the dtype its models were built in (bf16 on the
+        card, as the JAX engine serves it) and is never quantized.
 
         ``quantize`` ("none", "int8" or "w8a8") applies to both models;
         ``quantize_t2s``/``quantize_s2a`` override it per model, as the JAX
@@ -86,7 +102,7 @@ class TTSEngine:
         ``pred_iters``, ``s2a_steps``, ``temperature``, ``max_speech_len``,
         ``text_bucket``, ``length_bucket`` and ``batch_buckets``.
         """
-        return cls(t2s, s2a, **opts)
+        return cls(t2s, s2a, semantic, **opts)
 
     # -- speakers -------------------------------------------------------
     @property
@@ -99,10 +115,21 @@ class TTSEngine:
         return self.s2a.cfg.codec.hop_length
 
     def register_speaker(self, name: str, wav: np.ndarray, sr: int) -> None:
-        raise NotImplementedError(
-            "registering a speaker from a wav needs prompt tokenization (HuBERT, the codec "
-            "encoder, k-means), which the PyTorch port does not have yet; register the "
-            "prompt's codes with register_speaker_codes")
+        """Tokenize a speaker prompt (mono ``(T,)`` at ``sr`` Hz) once and
+        keep its codes for every request. ValueError for an empty wav, a rate
+        that is not positive or an engine without a semantic tokenizer."""
+        if self.tokenizer.semantic is None:
+            raise ValueError("this engine has no semantic tokenizer (HuBERT + k-means); "
+                             "build it with one, or register the prompt's codes with "
+                             "register_speaker_codes")
+        wav = np.array(wav, np.float32).reshape(-1)
+        if wav.size == 0 or sr <= 0:
+            raise ValueError(f"register_speaker: empty wav or sample rate {sr}")
+        if sr != self.sample_rate:
+            wav = resample(torch.from_numpy(wav).to(self.device), sr,
+                           self.sample_rate).cpu().numpy()
+        codes = self.tokenizer.compute_codes(wav[None])
+        self._speakers[name] = SpeakerPrompt(codes["acoustic_codes"], codes["semantic_codes"])
 
     def register_speaker_codes(self, name: str, acoustic_codes, semantic_codes) -> None:
         """Register precomputed prompt codes (``(1, Q, Tp)`` acoustic,
@@ -115,6 +142,10 @@ class TTSEngine:
 
     def speakers(self) -> tuple[str, ...]:
         return tuple(self._speakers)
+
+    def prompt(self, name: str) -> SpeakerPrompt:
+        """The codes registered for speaker ``name``."""
+        return self._speakers[name]
 
     # -- synthesis ------------------------------------------------------
     @torch.no_grad()

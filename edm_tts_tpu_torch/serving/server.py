@@ -16,10 +16,10 @@ Endpoints:
                      one document and concurrent short requests coalesce
                      into the same batched engine calls.
   POST /speakers     {"name", "pcm_b64" (little-endian f32), "sample_rate"}
-                     -> 501 with the engine's NotImplementedError text: the
-                     port cannot tokenize a prompt from a wav yet (the JAX
-                     package answers 200 {"ok": true}). Register speakers
-                     with ``TTSEngine.register_speaker_codes``.
+                     -> 200 {"ok": true} once the engine has tokenized the
+                     prompt (``TTSEngine.register_speaker``); a missing field,
+                     an empty PCM or an engine without a semantic tokenizer
+                     -> 400 with the error's text.
   GET  /healthz      -> {"ok": true, "speakers": [...]}
   GET  /stats        -> batcher counters (latency, batch sizes, queue depth)
 
@@ -105,8 +105,6 @@ class TTSServer:
                     server.engine.register_speaker(
                         body["name"], pcm, int(body["sample_rate"])
                     )
-                except NotImplementedError as e:
-                    return self._json(501, {"error": str(e)})
                 except (KeyError, ValueError) as e:
                     return self._json(400, {"error": str(e)})
                 self._json(200, {"ok": True})

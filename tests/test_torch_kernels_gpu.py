@@ -17,7 +17,10 @@ bit-equal reruns; K1 at every N tile of its two products, at T below one
 sequence or the tile, B > 1 against each row alone, C 16 to 768 and
 bit-equal reruns; K2's front at every column tile, ragged frame counts,
 tiles across the halves of the phase columns, B > 1 against each row
-alone and bit-equal reruns; and remat gradients on the card.
+alone and bit-equal reruns; K1 at the prompt tokenizer's encoder units
+(C 64-512, T up to 160160 rows) and B4 rows there against each row alone,
+K3 at HuBERT-large's H16 D64 (B1 unmasked, B4 ragged); and remat gradients
+on the card.
 On the GPU machine (no jax there, so the suite's conftest cannot load):
 
     python3 -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
@@ -126,6 +129,40 @@ def test_resunit_batch_rows_do_not_bleed(dev, c, t, dil):
     out = ops.fused_residual_unit(x, *p, dil)
     for i in range(3):
         _check(out[i:i + 1], ops.resunit_reference(x[i:i + 1], *p, dilation=dil))
+
+
+# the codec encoder's units for a 10 s prompt (160160 padded samples): C 64
+# at T 160160, C 128 at 80080, C 256 at 20020, C 512 at 4004; no T a
+# multiple of the 128-row tile
+ENCODER_UNITS = ((64, 160160), (128, 80080), (256, 20020), (512, 4004))
+
+
+@pytest.mark.parametrize("dil", [1, 3, 9])
+@pytest.mark.parametrize("c,t", ENCODER_UNITS)
+def test_resunit_encoder_shapes_match_plain(dev, c, t, dil):
+    """K1 at the prompt tokenizer's 12 units, at the tile the wrapper picks."""
+    gen = torch.Generator(device=dev).manual_seed(c + dil)
+    x = torch.randn(1, t, c, generator=gen, device=dev).bfloat16()
+    p = _resunit_params(c, dev, gen)
+    reset_launches()
+    out = ops.fused_residual_unit(x, *p, dil)
+    assert launches["resunit"] == 1
+    _check(out, ops.resunit_reference(x, *p, dilation=dil))
+
+
+@pytest.mark.parametrize("c,t", [(64, 40040), (256, 5005), (64, 160160), (128, 80080)])
+def test_resunit_encoder_batch_rows_do_not_bleed(dev, c, t):
+    """B = 4 on the encoder's widths (a batch of 2.5 s prompts, and the
+    batched tokenizer's canvas of 10 s: 4 x 160160 rows at C 64, where the
+    row offsets and the tensor maps' extents are largest), each row held
+    against that row alone, at every dilation."""
+    gen = torch.Generator(device=dev).manual_seed(c)
+    x = torch.randn(4, t, c, generator=gen, device=dev).bfloat16()
+    p = _resunit_params(c, dev, gen)
+    for dil in (1, 3, 9):
+        out = ops.fused_residual_unit(x, *p, dil)
+        for i in range(4):
+            _check(out[i:i + 1], ops.resunit_reference(x[i:i + 1], *p, dilation=dil))
 
 
 def test_resunit_is_deterministic(dev):
@@ -240,6 +277,24 @@ def test_attention_kernel_matches_plain(dev, b, tq, tk, h, d, masked):
         mask = pos < torch.tensor([[tk - 3]] + [[tk]] * (b - 1), device=dev)
         if tk > 65:
             mask[0, :64] = False
+    reset_launches()
+    out = ops.flash_mha(q, k, v, mask=mask)
+    assert launches["attention"] == 1
+    _check(out, ops.mha_reference(q, k, v, mask=mask))
+
+
+@pytest.mark.parametrize("t", [150, 500])
+@pytest.mark.parametrize("lens", [None, (1.0, 0.8, 0.55, 0.3)])
+def test_attention_hubert_shapes_match_plain(dev, t, lens):
+    """K3 at HuBERT-large's layers (H16 D64): one prompt of T frames
+    unmasked at B1, and a batch of 4 ragged prompts with the key mask."""
+    gen = torch.Generator(device=dev).manual_seed(t)
+    b = 1 if lens is None else 4
+    q, k, v = (torch.randn(b, t, 16, 64, generator=gen, device=dev).bfloat16() for _ in range(3))
+    mask = None
+    if lens is not None:
+        n = torch.tensor([round(f * t) for f in lens], device=dev)
+        mask = torch.arange(t, device=dev)[None, :] < n[:, None]
     reset_launches()
     out = ops.flash_mha(q, k, v, mask=mask)
     assert launches["attention"] == 1

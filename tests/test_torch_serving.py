@@ -2,14 +2,16 @@
 helpers, long-form chunking, DynamicBatcher and TTSServer.
 
 The engines run the same tiny weights (``QUANT_T2S`` / ``QUANT_S2A``, so
-that ``quantize="int8"`` has sites on both sides of the shape gate), f32 on
-the CPU, at temperature 0 with both packages' samplers switched to greedy
-inside the test (the port cannot reproduce ``jax.random``'s streams).
-Lengths: exact. Waveforms: atol 1e-4 (same math through two samplers and
-~15 convolutions, other summation order). The host-side helpers are pinned
+that ``quantize="int8"`` has sites on both sides of the shape gate, and the
+``TINY_HUBERT`` semantic tokenizer), f32 on the CPU, at temperature 0 with
+both packages' samplers switched to greedy inside the test (the port cannot
+reproduce ``jax.random``'s streams). Lengths and prompt codes: exact.
+Waveforms: atol 1e-4 (same math through two samplers and ~15
+convolutions, other summation order). The host-side helpers are pinned
 equal to the JAX package's on the same inputs.
 """
 
+import base64
 import functools
 import io
 import json
@@ -29,15 +31,16 @@ import edm_tts_tpu_torch.serving.engine as engine_mod
 from edm_tts_tpu.models.codec import Codec as JCodec
 from edm_tts_tpu.models.quantize import quantize_s2a as j_quantize_s2a
 from edm_tts_tpu.models.quantize import quantize_t2s as j_quantize_t2s
-from edm_tts_tpu.models.tokenizer.audio_tokenizer import AudioTokenizer
+from edm_tts_tpu.models.tokenizer.audio_tokenizer import AudioTokenizer as JAudioTokenizer
 from edm_tts_tpu.serving import batcher as j_batcher
 from edm_tts_tpu.serving import chunking as j_chunking
 from edm_tts_tpu.serving.engine import TTSEngine as JTTSEngine
 from edm_tts_tpu.utils import bucketing as j_bucketing
 from edm_tts_tpu_torch.models.s2a import s2a_sample
+from edm_tts_tpu_torch.models.tokenizer import AudioTokenizer
 from edm_tts_tpu_torch.serving import TTSEngine, TTSServer, batcher, chunking
 from edm_tts_tpu_torch.utils import bucketing
-from torch_port_parity import QUANT_S2A, QUANT_T2S, s2a_pair, t2s_pair
+from torch_port_parity import QUANT_S2A, QUANT_T2S, hubert_pair, s2a_pair, t2s_pair
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 OPTS = dict(pred_iters=3, s2a_steps=3, temperature=0.0, max_speech_len=16, text_bucket=8,
@@ -63,17 +66,19 @@ def greedy(monkeypatch):
 
 
 def _engines(quantize: str):
-    """(JAX engine, port engine) over the same weights, one speaker "p"."""
+    """(JAX engine, port engine) over the same weights, with the same
+    semantic tokenizer, one speaker "p" registered as codes."""
     jt2s, t2s_vars, t2s = t2s_pair(seed=0, cfg=QUANT_T2S)
     js2a, s2a_vars, s2a = s2a_pair(seed=0, cfg=QUANT_S2A)
+    jsem, sem_params, sem = hubert_pair(seed=0, num_clusters=QUANT_S2A["num_semantic_tokens"])
     if quantize != "none":
         jt2s, t2s_vars = j_quantize_t2s(jt2s, t2s_vars, quantize)
         js2a, s2a_vars = j_quantize_s2a(js2a, s2a_vars, quantize)
     jcodec = JCodec(js2a.cfg.codec)
     j_engine = JTTSEngine.from_models(
-        AudioTokenizer(jcodec, None), {"params": s2a_vars["params"]["codec"]}, None,
+        JAudioTokenizer(jcodec, jsem), {"params": s2a_vars["params"]["codec"]}, sem_params,
         js2a, s2a_vars, jt2s, t2s_vars, **OPTS)
-    engine = TTSEngine.from_models(t2s, s2a, device="cpu", quantize=quantize, **OPTS)
+    engine = TTSEngine.from_models(t2s, s2a, sem, device="cpu", quantize=quantize, **OPTS)
     ac, sem = _prompt()
     j_engine.register_speaker_codes("p", jnp.asarray(ac), jnp.asarray(sem))
     engine.register_speaker_codes("p", ac, sem)
@@ -132,9 +137,37 @@ def test_padded_s2a_canvas_samples_like_the_exact_one():
     torch.testing.assert_close(padded[:, :, :n], exact, rtol=0, atol=0)
 
 
-def test_register_speaker_from_a_wav_is_not_ported(int8_engine):
-    with pytest.raises(NotImplementedError, match="register_speaker_codes"):
+def test_register_speaker_from_a_wav_is_not_ported(int8_engine, monkeypatch):
+    """Registering from a wav needs the semantic tokenizer: an engine built
+    without one (codes only, ``register_speaker_codes``) refuses, as do an
+    empty wav and a rate that is not positive."""
+    with pytest.raises(ValueError, match="empty"):
+        int8_engine.register_speaker("q", np.zeros(0, np.float32), 16000)
+    with pytest.raises(ValueError, match="sample rate 0"):
+        int8_engine.register_speaker("q", np.zeros(1600, np.float32), 0)
+    monkeypatch.setattr(int8_engine, "tokenizer", AudioTokenizer(int8_engine.tokenizer.codec, None))
+    with pytest.raises(ValueError, match="register_speaker_codes"):
         int8_engine.register_speaker("q", np.zeros(1600, np.float32), 16000)
+    assert "q" not in int8_engine.speakers()
+
+
+@pytest.mark.parametrize("sr,n", [(24000, 9601), (16000, 4000)])
+def test_register_speaker_matches_jax_engine(sr, n):
+    """A wav at 24 kHz (resampled) or 16 kHz: the port's prompt codes equal
+    the JAX engine's, token for token."""
+    j_engine, engine = _engines("none")
+    t = np.arange(n) / sr
+    wav = (0.2 * np.sin(2 * np.pi * 220 * t) + 0.05 * np.random.default_rng(n).standard_normal(n))
+    wav = wav.astype(np.float32)
+    j_engine.register_speaker("w", wav, sr)
+    engine.register_speaker("w", wav, sr)
+    mine, theirs = engine.prompt("w"), j_engine._speakers["w"]
+    tok = engine.tokenizer
+    frames = int(tok.get_code_lengths(tok.pad(np.zeros(-(-n * 16000 // sr))).shape[-1]))
+    assert mine.acoustic_codes.shape == (1, 4, frames) and mine.semantic_codes.shape == (1, frames)
+    np.testing.assert_array_equal(mine.acoustic_codes.numpy(), np.asarray(theirs.acoustic_codes))
+    np.testing.assert_array_equal(mine.semantic_codes.numpy(), np.asarray(theirs.semantic_codes))
+    assert engine.speakers() == j_engine.speakers() == ("p", "w")
 
 
 def test_bucketing_and_chunking_equal_jax():
@@ -196,7 +229,7 @@ def test_batcher_groups_and_chunks_as_jax():
     assert stats["engine_calls"] == len(calls) > 3 and stats["failed"] == 0
 
 
-def test_server_end_to_end(int8_engine, greedy):
+def test_server_end_to_end(int8_engine, greedy, monkeypatch):
     engine = int8_engine
     server = TTSServer(engine, max_batch=4, max_wait_ms=50).start()
     base = f"http://{server.host}:{server.port}"
@@ -229,16 +262,29 @@ def test_server_end_to_end(int8_engine, greedy):
                 ("/synthesize", {"text": "hi", "speaker": "nobody"}, 400),
                 ("/synthesize", {"text": "hi"}, 400),
                 ("/synthesize", {"text": "a b", "speaker": "p", "long": True, "gt_length": 5}, 400),
-                ("/speakers", {"name": "q", "pcm_b64": "", "sample_rate": 16000}, 501),
+                ("/speakers", {"name": "q", "pcm_b64": "", "sample_rate": 16000}, 400),
+                ("/speakers", {"name": "q", "sample_rate": 16000}, 400),
                 ("/nowhere", {}, 404)):
             with pytest.raises(urllib.error.HTTPError) as e:
                 post(path, body)
             assert e.value.code == code
+
+        # a speaker registered from a 24 kHz wav over HTTP, then used
+        wav = (0.1 * np.random.default_rng(5).standard_normal(7200)).astype("<f4")
+        pcm_b64 = base64.b64encode(wav.tobytes()).decode()
+        _, data = post("/speakers", {"name": "q", "pcm_b64": pcm_b64, "sample_rate": 24000})
+        assert json.loads(data) == {"ok": True} and engine.speakers() == ("p", "q")
+        kind, data = post("/synthesize", {"text": "hi", "speaker": "q", "gt_length": 6})
+        sr, pcm = wavfile.read(io.BytesIO(data))
+        assert kind == "audio/wav" and pcm.shape == (6 * engine.hop_length,)
+        # an engine without a semantic tokenizer answers 400, naming the way out
+        monkeypatch.setattr(engine, "tokenizer", AudioTokenizer(engine.tokenizer.codec, None))
         with pytest.raises(urllib.error.HTTPError) as e:
-            post("/speakers", {"name": "q", "pcm_b64": "", "sample_rate": 16000})
+            post("/speakers", {"name": "r", "pcm_b64": pcm_b64, "sample_rate": 24000})
+        assert e.value.code == 400
         assert "register_speaker_codes" in json.loads(e.value.read())["error"]
         with urllib.request.urlopen(f"{base}/stats", timeout=30) as r:
             stats = json.loads(r.read())
-        assert stats["completed"] == 1 + len(parts) and stats["failed"] == 0
+        assert stats["completed"] == 2 + len(parts) and stats["failed"] == 0
     finally:
         server.shutdown()

@@ -135,3 +135,49 @@ def s2a_pair(seed: int = 0, cfg: dict = TINY_S2A):
     model = InjectionConformer(port_cfg)
     load_reference_state_dict(model, s2a_to_torch(jcfg, variables))
     return jmodel, variables, model
+
+
+# a HuBERT with the real conv strides (downsample 320, so its frames line up
+# with the codec's), narrow and two layers deep
+TINY_HUBERT = dict(conv_dim=(8,) * 7, conv_kernel=(10, 3, 3, 3, 3, 2, 2),
+                   conv_stride=(5, 2, 2, 2, 2, 2, 2), hidden_size=16, num_hidden_layers=2,
+                   num_attention_heads=4, intermediate_size=32, num_conv_pos_embeddings=16,
+                   num_conv_pos_embedding_groups=4)
+
+
+def hubert_pair(cfg: dict = TINY_HUBERT, seed: int = 0, output_layer: int = 1,
+                num_clusters: int = 8):
+    """(JAX SemanticTokenizerHubert, its params, port SemanticTokenizerHubert)
+    with the same weights, carried across by the port's
+    ``hf_state_dict_from_jax_params``, and the same centroids: frames of the
+    port's own layer-``output_layer`` states on a seeded waveform, so that
+    the ids spread over the clusters as trained centroids make them."""
+    from edm_tts_tpu.models.hubert import HubertConfig as JHubertConfig
+    from edm_tts_tpu.models.hubert import HubertModel as JHubertModel
+    from edm_tts_tpu.models.tokenizer import SemanticTokenizerHubert as JSemantic
+    from edm_tts_tpu_torch.models.hubert import HubertConfig, hf_state_dict_from_jax_params
+    from edm_tts_tpu_torch.models.hubert import load_hf_state_dict
+    from edm_tts_tpu_torch.models.tokenizer import SemanticTokenizerHubert
+
+    jcfg = JHubertConfig(**cfg)
+    variables = random_variables(lambda r: JHubertModel(jcfg).init(r, jnp.zeros((1, 1280))), seed)
+    port = SemanticTokenizerHubert(HubertConfig(**cfg), output_layer=output_layer,
+                                   num_clusters=num_clusters)
+    load_hf_state_dict(port.hubert, hf_state_dict_from_jax_params(port.config, variables))
+    rng = np.random.default_rng(seed + 100)
+    wav = torch.from_numpy(rng.standard_normal((1, 320 * (num_clusters + 4))).astype(np.float32))
+    with torch.no_grad():
+        frames = port.hidden_states(wav)[0]
+    pick = rng.choice(frames.shape[0], num_clusters, replace=False)
+    centers = frames[pick].numpy() + 0.05 * rng.standard_normal((num_clusters, frames.shape[1]))
+    port.cluster_centers.copy_(torch.from_numpy(centers.astype(np.float32)))
+    jsem = JSemantic(jcfg, output_layer=output_layer)
+    return jsem, jsem.make_params(variables, centers.astype(np.float32)), port
+
+
+def argmin_gap(d: torch.Tensor) -> float:
+    """The least gap between the smallest and second-smallest entry of the
+    last axis of ``d``: ids compared across the two packages are only
+    meaningful where it exceeds the ~6e-3 cross-implementation noise."""
+    two = torch.topk(d.detach().reshape(-1, d.shape[-1]), 2, dim=-1, largest=False).values
+    return float((two[:, 1] - two[:, 0]).min())
