@@ -28,7 +28,12 @@ Phases, each reported on its own line:
      backward of scaled_dot_product_attention: forward and backward timed,
      the forward subtracted; for K6 SDPA's forward); the least time the card
      could take (utils/devtime.py: bytes over 3.35 TB/s, products over 989
-     TFLOP/s, exponentials over 3.9e12/s, the H100 SXM's peaks);
+     TFLOP/s, exponentials over 3.9e12/s, the H100 SXM's peaks); and K3's
+     and K5's f32 kernels against their plain f32 versions (TF32 off) at
+     the f32 path's shapes (ATTENTION_F32_CASES; K5 at the 31 int8 cases
+     with f32 activations), beside SDPA f32 and the f32 matmul on the
+     dequantized weight, bound at the 67 TFLOP/s f32 FMA peak, within
+     2^-16 relative l2 and 2^-14 of the largest output;
   4. end to end: full-width models (the default codec and s2a, the t2s of
      bench.py; edm_tts_tpu_torch/profile_synthesis.py builds them) from a
      seeded random init in bf16 answer (a) a 10 s request with a given
@@ -67,7 +72,20 @@ Phases, each reported on its own line:
      of all levels against its exact-size call; prints the wall and device
      time per second of prompt audio, the busy share and each part's time
      (profile_tokenization);
-  7. training (d): the s2a recipe of configs/injection_conformer/
+  7. model directories and the CLIs (h): the default codec and s2a,
+     bench.py's t2s and HuBERT-large with 1024 centroids, f32, seeded,
+     written as directories (reference model.safetensors, the t2s also as
+     pytorch_model.bin, HuBERT as an HF directory with centroids.npy) with
+     a 3 s 24 kHz prompt as WAV and FLAC; four ``python -m
+     edm_tts_tpu_torch.inference`` runs (bf16 and f32, --quantize int8,
+     --text_file of 3 lines, --long, --one_shot) and two ``python -m
+     edm_tts_tpu_torch.serve`` (bf16 and f32: --speaker, /synthesize,
+     /speakers, /healthz, /stats, SIGTERM -> exit 0) at once, each
+     process's kernel launches and WAV lengths checked; in this process an
+     f32 int8 TTSEngine.from_dirs whose registration and request are the
+     f32 kernels' counted launches (no K1, K2 or bf16 kernel), its
+     tokenization held against the plain versions (cli_path);
+  8. training (d): the s2a recipe of configs/injection_conformer/
      train_config.yaml (d1024, 16 layers, B32 x 768 frames in 4
      micro-batches, bf16 autocast, f32 weights and AdamW state) through
      train.run_s2a.main_from_dict on seeded token shards and a seeded random
@@ -79,7 +97,7 @@ Phases, each reported on its own line:
      trainable tensor moved and 16 K3 and 16 K4 launches per micro-batch;
      prints seconds per step, frames per second, peak device memory and
      the final checkpoint's size and save time;
-  8. training (e): the t2s recipe of configs/text_to_semantic_w_length/
+  9. training (e): the t2s recipe of configs/text_to_semantic_w_length/
      train_config.yaml (hidden 384, 12 + 4 layers, heads 8 x 24, B32, lr
      2.5e-4, bf16 autocast) through train.run_t2s.main_from_dict on 2100
      seeded items (length-bucketed batches), 6 steps with a 2-step warmup;
@@ -88,13 +106,13 @@ Phases, each reported on its own line:
      moved, 16 K3 and 16 K4 launches per step and at least two canvas
      lengths; prints seconds per step, canvas tokens per second and peak
      device memory;
-  9. gradient checkpointing: one full-width s2a micro-batch (B8 x 768,
+ 10. gradient checkpointing: one full-width s2a micro-batch (B8 x 768,
      dropout 0.1, a fixed generator) under the remat policies "full",
      "mha" and "dots" against none: gradients within REMAT_GRAD_REL_L2_TOL,
      32 K3 launches under "full" and 16 under the others, peak memory of
      each; then 2 steps of the s2a recipe as B32 in one micro-batch under
      "mha" (step time, peak memory);
- 10. ablation (f): K6's variants and query tiles at B32 T1408 H16 D24
+ 11. ablation (f): K6's variants and query tiles at B32 T1408 H16 D24
      through profile_attn_variants.sweep, with its launches counted.
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
@@ -103,11 +121,12 @@ There is no CPU fallback: without a CUDA device the script fails.
     python3 chip_smoke.py --source-faults
 
 plants each of SOURCE_FAULTS in a copy of K1's and K2's (the GEMM they
-share), K3's, K4's, K5's or K6's CUDA source (the package and this script
-copied into a temporary directory, built there) and runs the cases of
-phase 3 that hold that kernel on it: K1's one-request and encoder cases
-and K2's (``--codec-kernels``), K5's (``--int8-kernels``),
-or the K3-with-LSE/K4 and ragged K6 ones (``--attention-kernels``); each
+share), K3's, K4's, K5's, K6's or the f32 K3's and K5's CUDA source (the
+package and this script copied into a temporary directory, built there)
+and runs the cases of phase 3 that hold that kernel on it: K1's
+one-request and encoder cases and K2's (``--codec-kernels``), K5's
+(``--int8-kernels``), the f32 kernels' (``--f32-kernels``), or the
+K3-with-LSE/K4 and ragged K6 ones (``--attention-kernels``); each
 exits 3 when a case is outside its limits.
 The sources as they are must pass first, and it exits 1 if any fault
 passes.
@@ -147,6 +166,20 @@ MAX_ABS_TOL = 2.0 ** -5
 # so the relative limits above, at LSE values ~7, would pass a 10 % error
 # in every gradient
 LSE_ABS_TOL = 1e-4
+# K3's and K5's f32 kernels against their plain f32 versions (TF32 off): f32
+# products in another summation order leave ~1e-7 to 1e-6; an operand
+# rounded to bf16 or to TF32 (10 mantissa bits), a dropped tail tile, mask or
+# scale moves the output by 2^-11 or more. Set before the kernels' first run.
+F32_REL_L2_TOL = 2.0 ** -16
+F32_MAX_ABS_TOL = 2.0 ** -14
+# (h): the f32 engine's prompt tokenization against the same f32 models with
+# every plain version swapped in: the share of frames whose semantic id and
+# level-0 code agree (only K3's f32 kernel differs from its plain version,
+# ~1e-6), and HuBERT's layer-18 states' relative l2
+F32_TOKENIZE_SAME = 0.99
+F32_TOKENIZE_REL_L2_TOL = 1e-4
+# (h): the CLIs' runs (seconds each may take; the models load from disk)
+CLI_TIMEOUT_S = 600
 # the int8 s2a's level-0 logits against the bf16 s2a's on one seeded canvas:
 # measured 0.022 on an H100; the limit is about twice that, and a third of
 # the 15 % loss rule the JAX package's own test holds int8 weights to
@@ -208,7 +241,22 @@ KERNELS = {
                        replaces="edm_tts_tpu/ops/qdense.py:102"),
     "attn_variants": dict(source="edm_tts_tpu_torch/csrc/attn_variants.cu",
                           replaces="scripts/profile_attn_variants.py:55"),
+    "attention_f32": dict(source="edm_tts_tpu_torch/csrc/attention_f32.cu",
+                          replaces="edm_tts_tpu/ops/pallas_attention.py:83"),
+    "int8_dense_f32": dict(source="edm_tts_tpu_torch/csrc/qdense_f32.cu",
+                           replaces="edm_tts_tpu/ops/qdense.py:102"),
 }
+# K3's f32 kernel at the f32 path's shapes (label: B, T, H, D, key lengths or
+# None): HuBERT-large on a 3 s and a 10 s prompt and its masked batch, the
+# t2s canvas, the s2a at one request and at a full canvas
+ATTENTION_F32_CASES = (
+    ("hubert B1 T150 H16 D64", (1, 150, 16, 64, None)),
+    ("hubert B1 T500 H16 D64", (1, 500, 16, 64, None)),
+    ("hubert B4 T500 H16 D64 mask", (4, 500, 16, 64, (150, 275, 400, 500))),
+    ("t2s T604 H8 D24 mask", (1, 604, 8, 24, (553,))),
+    ("s2a T650 H16 D64", (1, 650, 16, 64, None)),
+    ("s2a T1250 H16 D64 mask", (1, 1250, 16, 64, (1199,))),
+)
 # K3 with its LSE and K4: the s2a training micro-batch, a masked ragged batch
 # and the masked t2s canvas (label: B, T, H, D, key lengths or None)
 ATTENTION_TRAIN_CASES = (
@@ -294,13 +342,31 @@ SOURCE_FAULTS = {
          "for (int r = threadIdx.x / kChunks; r < kConvBM && t0 + r < T &&\n"
          "       !(EPI == kPhase && blockIdx.y + 1 == gridDim.y); r += kRowStep) {")]),
 }
+SOURCE_FAULTS.update({
+    # K3's f32 kernel: the running max's rescale, the mask, the tail keys
+    "K3 f32 online rescale dropped": ("attention_f32.cu", [
+        ("const float alpha = exp2f(m - m_new);", "const float alpha = m == -INFINITY ? 0.f : 1.f;")]),
+    "K3 f32 mask ignored": ("attention_f32.cu", [
+        ("(mask != nullptr && !uniform) ? mask + (size_t)b * Tk : nullptr;", "nullptr;")]),
+    "K3 f32 last partial key tile dropped": ("attention_f32.cu", [
+        ("const int n = min(kKeys, Tk - t0);", "const int n = Tk - t0 < kKeys ? 0 : kKeys;")]),
+    # K5's f32 kernel: the scale, the last K step, the ragged rows
+    "K5 f32 scale ignored": ("qdense_f32.cu", [
+        ("const float4 s0 = *reinterpret_cast<const float4*>(scale + n0 + tx * 4);",
+         "const float4 s0 = make_float4(1.f, 1.f, 1.f, 1.f);")]),
+    "K5 f32 last K step skipped": ("qdense_f32.cu", [
+        ("const int nk = K / kBK;", "const int nk = (K - 1) / kBK;")]),
+    "K5 f32 ragged last row tile not stored": ("qdense_f32.cu", [
+        ("if (m >= M) continue;", "if (m >= M / kBM * kBM) continue;")]),
+})
 # the --source-faults mode of each fault's source
-FAULT_MODES = {"conv_gemm.cuh": "--codec-kernels", "qdense.cu": "--int8-kernels"}
+FAULT_MODES = {"conv_gemm.cuh": "--codec-kernels", "qdense.cu": "--int8-kernels",
+               "attention_f32.cu": "--f32-kernels", "qdense_f32.cu": "--f32-kernels"}
 
 
 class CheckFailed(SystemExit):
     """A result outside its limit: exit code 1 (3 under ``--attention-kernels``,
-    ``--int8-kernels`` and ``--codec-kernels``)."""
+    ``--int8-kernels``, ``--codec-kernels`` and ``--f32-kernels``)."""
 
 
 def fail(msg: str) -> None:
@@ -315,7 +381,8 @@ def kernel_phase(torch, ops, part: str | None = None, parent_front=None) -> dict
     """Each kernel against its plain version at the slices' shapes; with
     ``part`` "attention" only K3 with its LSE, K4 and K6's ragged cases, with
     "int8" only K5's cases, with "codec" only K1's one-request cases and
-    K2's (what ``--source-faults`` needs). ``parent_front``: another
+    K2's, with "f32" only the f32 kernels' cases (what ``--source-faults``
+    needs). ``parent_front``: another
     checkout's K2 front (profile_decoder_block.parent_front), timed beside
     this one's.
 
@@ -340,7 +407,7 @@ def kernel_phase(torch, ops, part: str | None = None, parent_front=None) -> dict
     from edm_tts_tpu_torch.profile_resunit import SERVED_CASES as SERVED_RESUNIT_CASES
     from edm_tts_tpu_torch.profile_resunit import encoder_units, resunit_work
     from edm_tts_tpu_torch.profile_tokenization import PROMPT_SECONDS, encoder_samples
-    from edm_tts_tpu_torch.utils.devtime import bound, median_ms
+    from edm_tts_tpu_torch.utils.devtime import PEAK_F32_FLOPS, bound, median_ms
 
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -366,6 +433,9 @@ def kernel_phase(torch, ops, part: str | None = None, parent_front=None) -> dict
                 alpha(c), uniform(1, c, c, lo=-c ** -0.5, hi=c ** -0.5).to(bf16),
                 normal(c, scale=0.5))
 
+    def tf32(x):  # x with its mantissa cut to TF32's 10 bits
+        return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
     def replaced(params, i, value):
         return tuple(value if j == i else p for j, p in enumerate(params))
 
@@ -374,12 +444,16 @@ def kernel_phase(torch, ops, part: str | None = None, parent_front=None) -> dict
     def as_tuple(x):
         return x if isinstance(x, tuple) else (x,)
 
-    def compare(name, label, kernel, plain, faults, work, library=None):
-        """``work``: (operations, bytes) the function needs on these inputs;
+    def compare(name, label, kernel, plain, faults, work, library=None,
+                tols=(REL_L2_TOL, MAX_ABS_TOL)):
+        """``work``: (operations, bytes[, exponentials[, peak FLOP/s]]) the
+        function needs on these inputs (f32 kernels: the f32 FMA peak);
+        ``tols``: (relative l2, max abs share) limits;
         ``library``: (name, fn) of one PyTorch call computing it, or None,
         or (name, fn, fn_subtracted): the time of the first less the second.
         A function of several outputs (K3 with its LSE, K4) is held to the
         limits on each; a fault is rejected when any output leaves them."""
+        rel_tol, abs_share = tols
         out = as_tuple(kernel())
         torch.cuda.synchronize()
         ref = as_tuple(plain())
@@ -388,8 +462,8 @@ def kernel_phase(torch, ops, part: str | None = None, parent_front=None) -> dict
             if o.shape != r.shape or not torch.isfinite(o).all():
                 fail(f"{label}: shape {tuple(o.shape)} vs {tuple(r.shape)} or non-finite output")
         errs = [(o.float() - r.float()).abs().max().item() for o, r in zip(out, ref)]
-        tols = [MAX_ABS_TOL * r.float().abs().max().item() for r in ref]
-        err, max_abs_tol = max(errs), max(tols)
+        abs_tols = [abs_share * r.float().abs().max().item() for r in ref]
+        err, max_abs_tol = max(errs), max(abs_tols)
         rel = max(rel_l2(torch, o, r) for o, r in zip(out, ref))
         fault_rel = {f: max(rel_l2(torch, o, r) for o, r in zip(as_tuple(fn()), ref))
                      for f, fn in faults.items()}
@@ -400,15 +474,15 @@ def kernel_phase(torch, ops, part: str | None = None, parent_front=None) -> dict
             if len(library) == 3:
                 library_ms -= median_ms(library[2])
         bound_ms, bound_by = bound(*work)
-        print(f"kernel {name} {label}: rel_l2 {rel:.6g} (tol {REL_L2_TOL:.6g}) max_abs_err "
+        print(f"kernel {name} {label}: rel_l2 {rel:.6g} (tol {rel_tol:.6g}) max_abs_err "
               f"{err:.6g} (tol {max_abs_tol:.4g}) planted faults rel_l2 "
               f"{ {f: round(r, 5) for f, r in fault_rel.items()} } "
               f"ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
               f"{'n/a' if library_ms is None else f'{library_ms:.4f} ({library[0]})'} "
               f"bound_ms {bound_ms:.4f} ({bound_by})", flush=True)
-        if not (rel <= REL_L2_TOL and all(e <= t for e, t in zip(errs, tols))):  # NaN fails too
-            fail(f"{label}: rel l2 {rel} / max abs {err} above {REL_L2_TOL} / {max_abs_tol}")
-        weak = [f for f, r in fault_rel.items() if not r > REL_L2_TOL]
+        if not (rel <= rel_tol and all(e <= t for e, t in zip(errs, abs_tols))):  # NaN fails too
+            fail(f"{label}: rel l2 {rel} / max abs {err} above {rel_tol} / {max_abs_tol}")
+        weak = [f for f, r in fault_rel.items() if not r > rel_tol]
         if weak:
             fail(f"{label}: the limit would let the planted faults {weak} pass")
         cases[name].append(dict(case=label, rel_l2=rel, max_abs_err=err, ms=ms,
@@ -416,6 +490,58 @@ def kernel_phase(torch, ops, part: str | None = None, parent_front=None) -> dict
                                 library=None if library is None else library[0],
                                 bound_ms=bound_ms, bound_by=bound_by,
                                 planted_fault_rel_l2=fault_rel))
+
+    # K3's and K5's f32 kernels (also under --f32-kernels): K3 at
+    # ATTENTION_F32_CASES with its LSE, K5 at every int8 case of one request
+    # and of a served call, f32 activations. Faults: an operand rounded to
+    # bf16 or to TF32, and each kernel's own (mask, tail keys; scale, last K
+    # step). Library calls: SDPA on f32 inputs, f32 matmul on the dequantized
+    # weight (TF32 off for both). Bound: f32 products at the f32 FMA peak.
+    for label, m, kdim, n in INT8_CASES + SERVED_INT8_CASES if part in (None, "f32") else ():
+        x = normal(m, kdim)
+        q8, scale = ops.quantize_weight(normal(kdim, n) * uniform(n, lo=0.5, hi=2.0))
+        w_deq = q8.float() * scale
+        flops, _ = int8_work(m, kdim, n)
+        compare("int8_dense_f32", f"{label} M{m} K{kdim} N{n}",
+                lambda: ops.int8_dense(x, q8, scale),
+                lambda: ops.int8_dense_reference(x, q8, scale),
+                {"bf16 x": lambda: ops.int8_dense_reference(x.to(bf16).float(), q8, scale),
+                 "tf32 x": lambda: ops.int8_dense_reference(tf32(x), q8, scale),
+                 "scale ignored": lambda: x @ q8.float(),
+                 "last K step dropped": lambda: ops.int8_dense_reference(
+                     x[:, :-16], q8[:-16], scale)},
+                (flops, 4 * m * kdim + kdim * n + 4 * n + 4 * m * n, 0, PEAK_F32_FLOPS),
+                ("matmul f32-dequantized, TF32 off", lambda: torch.matmul(x, w_deq)),
+                tols=(F32_REL_L2_TOL, F32_MAX_ABS_TOL))
+        cases["int8_dense_f32"][-1].update(m=m, k=kdim, n=n)
+    for label, (b, t, h, d, lens) in ATTENTION_F32_CASES if part in (None, "f32") else ():
+        q, k, v = (normal(b, t, h, d) for _ in range(3))
+        pos = torch.arange(t, device=dev)[None]
+        mask = None if lens is None else pos < torch.tensor(lens, device=dev)[:, None]
+        valid = pos.expand(b, t) >= 0 if mask is None else mask
+        tail = valid & (pos < t // 64 * 64)
+
+        def plain_lse(q=q, k=k, v=v, mask=mask):
+            return ops.mha_reference(q, k, v, mask=mask), ops.attention_lse_reference(q, k, mask=mask)
+
+        faults = {"bf16 operands": lambda: plain_lse(*(z.to(bf16).float() for z in (q, k, v))),
+                  "tf32 q and k": lambda: plain_lse(tf32(q), tf32(k))}
+        if not torch.equal(tail, valid):  # the last tile holds a key that counts
+            faults["tail tile dropped"] = lambda: plain_lse(mask=tail)
+        if mask is not None:
+            faults["mask ignored"] = lambda: plain_lse(mask=None)
+        qt, kt, vt = (z.transpose(1, 2).contiguous() for z in (q, k, v))
+        sdpa_mask = None if mask is None else mask[:, None, None, :]
+        n_keys = int(valid.sum())  # summed over the batch rows
+        compare("attention_f32", f"{label} with LSE",
+                lambda: ops.flash_mha(q, k, v, mask=mask, return_lse=True), plain_lse, faults,
+                (4 * h * t * n_keys * d, 4 * (4 * b * t * h * d) + b * t + 4 * b * h * t,
+                 h * t * n_keys, PEAK_F32_FLOPS),
+                ("scaled_dot_product_attention f32", lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=sdpa_mask)),
+                tols=(F32_REL_L2_TOL, F32_MAX_ABS_TOL))
+    if part == "f32":
+        return cases
 
     # K3 with its LSE and K4 (attention_bwd, both of its kernels) at
     # ATTENTION_TRAIN_CASES (not under --int8-kernels). The library calls are SDPA with the same bool
@@ -803,8 +929,8 @@ def served_path(torch, t2s, s2a, semantic, dev, smi: str, held: set, held_k1: se
     from scipy.io import wavfile
 
     from edm_tts_tpu_torch.kernels import (
+        all_launches,
         int8_dense_shapes,
-        launches,
         reset_launches,
         resunit_shapes,
     )
@@ -887,7 +1013,7 @@ def served_path(torch, t2s, s2a, semantic, dev, smi: str, held: set, held_k1: se
         with ThreadPoolExecutor(4) as pool:
             results = list(pool.map(post, bodies))
         torch.cuda.synchronize()
-        counts["concurrent"] = dict(launches)
+        counts["concurrent"] = all_launches()
         shapes = dict(int8_dense_shapes)
         k1_shapes = dict(resunit_shapes)
         stats = json.loads(urllib.request.urlopen(f"{base}/stats", timeout=60).read())
@@ -934,7 +1060,7 @@ def served_path(torch, t2s, s2a, semantic, dev, smi: str, held: set, held_k1: se
         status, sr, pcm, lat = post({"text": long_text, "speaker": "spk", "seed": 3,
                                      "long": True, "max_chunk_chars": 120})
         torch.cuda.synchronize()
-        counts["long"] = dict(launches)
+        counts["long"] = all_launches()
         rms = check_wav(engine, "long request", status, sr, pcm)
         n_long = len(calls) - calls_before
         want = {k: n_long * expected(False)[k] for k in KERNELS}
@@ -971,20 +1097,20 @@ def plain_versions(ops):
     them); fails if a kernel launches inside it."""
     import edm_tts_tpu_torch.models.codec.layers as layers_mod
     import edm_tts_tpu_torch.models.hubert.model as hubert_mod
-    from edm_tts_tpu_torch.kernels import launches
+    from edm_tts_tpu_torch.kernels import all_launches
 
     saved = layers_mod.fused_residual_unit, hubert_mod.mha
     layers_mod.fused_residual_unit = (
         lambda x, *p: ops.resunit_reference(x, *p[:-1], dilation=p[-1]))
     hubert_mod.mha = lambda q, k, v, *, mask=None, implementation="auto": ops.mha_reference(
         q, k, v, mask=mask)
-    before = dict(launches)
+    before = all_launches()
     try:
         yield
     finally:
         layers_mod.fused_residual_unit, hubert_mod.mha = saved
-    if dict(launches) != before:
-        fail(f"the plain versions launched kernels: {before} -> {dict(launches)}")
+    if all_launches() != before:
+        fail(f"the plain versions launched kernels: {before} -> {all_launches()}")
 
 
 def tokenization_path(torch, ops, engine, dev, smi: str, held_k1: set) -> dict:
@@ -997,7 +1123,7 @@ def tokenization_path(torch, ops, engine, dev, smi: str, held_k1: set) -> dict:
     import numpy as np
     from scipy.io import wavfile
 
-    from edm_tts_tpu_torch.kernels import launches, reset_launches, resunit_shapes
+    from edm_tts_tpu_torch.kernels import all_launches, reset_launches, resunit_shapes
     from edm_tts_tpu_torch.models.tokenizer import AudioTokenizer
     from edm_tts_tpu_torch.ops.resample import resample
     from edm_tts_tpu_torch.profile_tokenization import (
@@ -1071,7 +1197,7 @@ def tokenization_path(torch, ops, engine, dev, smi: str, held_k1: set) -> dict:
             reset_launches()
             status, data, lat = post_json(base, "/speakers", body)
             torch.cuda.synchronize()
-            counts[name], shapes = dict(launches), dict(resunit_shapes)
+            counts[name], shapes = all_launches(), dict(resunit_shapes)
             if status != 200 or json.loads(data) != {"ok": True}:
                 fail(f"(g) POST /speakers {name}: HTTP {status} {data[:200]!r}")
             prompt = engine.prompt(name)
@@ -1165,7 +1291,7 @@ def tokenization_path(torch, ops, engine, dev, smi: str, held_k1: set) -> dict:
     reset_launches()
     out = tok.compute_codes_batch(normalized, padded, mask)
     torch.cuda.synchronize()
-    batch_counts, batch_shapes = dict(launches), dict(resunit_shapes)
+    batch_counts, batch_shapes = all_launches(), dict(resunit_shapes)
     want = no_launches(resunit=3 * len(cfg.encoder_rates), attention=sem.output_layer)
     label = f"batch of {len(lengths)}"
     print(f"tokenize (g) {label} prompts of {list(BATCH_PROMPT_SECONDS)} s on {t} samples with "
@@ -1221,7 +1347,7 @@ def attention_gradient_check(torch, ops, model, loss, label: str) -> dict:
     sqrt(D)); returns the launches of the kernel run."""
     import edm_tts_tpu_torch.models.conformer.conformer as conformer_mod
     import edm_tts_tpu_torch.ops.attention as attention_mod
-    from edm_tts_tpu_torch.kernels import launches, reset_launches
+    from edm_tts_tpu_torch.kernels import all_launches, launches, reset_launches
 
     def loss_and_grad():
         model.zero_grad(set_to_none=True)
@@ -1235,7 +1361,7 @@ def attention_gradient_check(torch, ops, model, loss, label: str) -> dict:
     reset_launches()
     loss_k, grad_k = loss_and_grad()
     torch.cuda.synchronize()
-    counts = dict(launches)
+    counts = all_launches()
     true_mha = conformer_mod.mha
 
     def plain_mha(q, k, v, *, mask=None, implementation="auto"):
@@ -1248,7 +1374,7 @@ def attention_gradient_check(torch, ops, model, loss, label: str) -> dict:
     finally:
         conformer_mod.mha = true_mha
     if launches["attention"] or launches["attention_bwd"]:
-        fail(f"{label}: the plain-attention step launched kernels: {dict(launches)}")
+        fail(f"{label}: the plain-attention step launched kernels: {all_launches()}")
     true_bwd = attention_mod.flash_mha_bwd
 
     def dk_scaled_wrong(q, k, v, mask, o, lse, g):
@@ -1281,13 +1407,306 @@ def no_launches(**counts) -> dict:
     return {name: counts.get(name, 0) for name in KERNELS}
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def launch_line(out: str) -> dict:
+    """The ``kernel launches: {...}`` line a CLI prints on the card."""
+    lines = [line for line in out.splitlines() if line.startswith("kernel launches: ")]
+    if not lines:
+        fail(f"no 'kernel launches' line in the CLI's output:\n{out[-2000:]}")
+    return json.loads(lines[-1][len("kernel launches: "):])
+
+
+def check_kernels(label: str, counts: dict, ran: tuple, idle: tuple) -> None:
+    """Each kernel of ``ran`` launched, none of ``idle``."""
+    print(f"cli (h) {label}: kernel launches {counts}", flush=True)
+    if any(not counts.get(k, 0) for k in ran) or any(counts.get(k, 0) for k in idle):
+        fail(f"{label}: launches {counts}: want {ran} > 0 and {idle} == 0")
+
+
+# (h): what each CLI run must and must not launch, by dtype (the bf16 CLIs'
+# decode is masked, so K2 is off; at f32 the codec runs the composition)
+BF16_KERNELS = ("resunit", "attention")
+F32_KERNELS = ("attention_f32",)
+NOT_BF16 = ("decoder_block", "attention_bwd", "attn_variants", "attention_f32", "int8_dense_f32")
+NOT_F32 = ("resunit", "decoder_block", "attention", "attention_bwd", "int8_dense",
+           "attn_variants")
+CLI_FRAMES = 200  # the length head is set to predict ~200 frames (4 s)
+CLI_LONG_TEXT = ("The first sentence of a long text. A second one follows it closely. "
+                 "Then a third, which ends the paragraph. A fourth opens the next one.")
+
+
+def cli_path(torch, ops, dev, smi: str) -> dict:
+    """(h): model directories and the two CLIs. Writes full-width seeded
+    random weights (the default codec and s2a, bench.py's t2s with its
+    length head set to ~200 frames, HuBERT-large with 1024 centroids; f32)
+    as directories in a temporary directory: codec, s2a (acoustic_model_path
+    to the codec) and t2s in the reference format (model.safetensors), the
+    t2s again as pytorch_model.bin, HuBERT as an HF directory with
+    centroids.npy; a 3 s 24 kHz prompt as WAV and FLAC. Then, at once,
+    four ``python -m edm_tts_tpu_torch.inference`` runs (bf16 int8
+    --text_file of 3 lines from the FLAC and the .bin t2s; f32 int8
+    --text_file; bf16 --long in groups of 2; f32 --one_shot) and two
+    ``python -m edm_tts_tpu_torch.serve`` (bf16 int8, f32 int8; --speaker
+    from the FLAC), and in this process the f32 int8 engine from the same
+    directories (TTSEngine.from_dirs): one registered prompt and one
+    request, counted (the path's launches), its tokenization against the
+    same models with every plain version swapped in. Checks each WAV's
+    length (the CLI's sampled frames x 320, or their join), no clipped-to-
+    -32768 sample (a NaN's mark) and rms > 0, each process's kernel
+    launches, the servers' /synthesize, /speakers, /healthz and /stats, and
+    that SIGTERM ends each server with exit code 0. Returns the in-process
+    engine's launches."""
+    import base64
+    import signal
+    import tempfile
+    import urllib.request
+    from pathlib import Path
+
+    import numpy as np
+    from scipy.io import wavfile
+
+    from edm_tts_tpu_torch.data.audio_io import save_wav
+    from edm_tts_tpu_torch.kernels import all_launches, reset_launches
+    from edm_tts_tpu_torch.ops.resample import resample
+    from edm_tts_tpu_torch.profile_synthesis import PRED_ITERS, STEPS, full_width_models
+    from edm_tts_tpu_torch.profile_tokenization import full_width_semantic, prompt_wav
+    from edm_tts_tpu_torch.serving import TTSEngine
+    from edm_tts_tpu_torch.serving.chunking import join_waveforms
+    from edm_tts_tpu_torch.train.export import save_t2s
+    from edm_tts_tpu_torch.utils import hub
+
+    root = Path(__file__).resolve().parent
+    sys.path.insert(0, str(root / "tests"))
+    from flac_encoder import encode_flac  # a lossless FLAC writer (numpy only)
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
+    procs: list = []
+    try:
+        t0 = time.perf_counter()
+        t2s, s2a = full_width_models(dev, SEED + 70, dtype=torch.float32)
+        t2s.length_pred_head.weight.mul_(0.02)
+        t2s.length_pred_head.bias.fill_(math.log(CLI_FRAMES))
+        semantic = full_width_semantic(dev, SEED + 71, dtype=torch.float32)
+        d = {name: str(tmp / name) for name in ("codec", "s2a", "t2s", "t2s_bin", "hubert")}
+        hub.save_reference(d["codec"], s2a.acoustic_model)
+        hub.save_reference(d["s2a"], s2a, codec_dir=d["codec"])
+        hub.save_reference(d["t2s"], t2s)
+        save_t2s(d["t2s_bin"], t2s)
+        hub.save_hubert_hf(d["hubert"], semantic, centroids="centroids.npy")
+        del t2s, s2a, semantic
+        gc.collect()
+        torch.cuda.empty_cache()
+        size = sum(f.stat().st_size for f in tmp.rglob("*") if f.is_file())
+        wav24 = prompt_wav(3.0, SEED + 72, 24000)
+        save_wav(str(tmp / "prompt.wav"), wav24, 24000)
+        (tmp / "prompt.flac").write_bytes(encode_flac(
+            np.round(np.clip(wav24, -1, 1) * 32767).astype(np.int64)[None], 24000))
+        (tmp / "texts.txt").write_text("A first line to read.\nAnd a second, longer line of "
+                                       "text to read aloud.\nThe third.\n")
+        print(f"cli (h): model directories written in {time.perf_counter() - t0:.2f} s, "
+              f"{size / 2**30:.2f} GiB", flush=True)
+
+        models = ["--codec_model", d["codec"], "--t2s_model", d["t2s"], "--s2a_model", d["s2a"],
+                  "--hubert_model", d["hubert"], "--max_speech_len", "600"]
+        flac, wav = str(tmp / "prompt.flac"), str(tmp / "prompt.wav")
+        texts = str(tmp / "texts.txt")
+        runs = {
+            "inference bf16 int8 --text_file (.bin t2s, FLAC prompt)": (
+                ["--dtype", "bfloat16", "--quantize", "int8", "--text_file", texts, "-s", flac,
+                 "--t2s_model", d["t2s_bin"]], BF16_KERNELS + ("int8_dense",), NOT_BF16),
+            "inference f32 int8 --text_file": (
+                ["--dtype", "float32", "--quantize", "int8", "--text_file", texts, "-s", wav],
+                F32_KERNELS + ("int8_dense_f32",), NOT_F32),
+            "inference bf16 --long": (
+                ["--dtype", "bfloat16", "--long", "-t", CLI_LONG_TEXT, "--long_batch", "2",
+                 "--max_chunk_chars", "40", "-s", flac], BF16_KERNELS, NOT_BF16 + ("int8_dense",)),
+            "inference f32 --one_shot": (
+                ["--dtype", "float32", "--one_shot", "-t", "One shot, at a given length.",
+                 "--gt_length", "250", "-s", wav], F32_KERNELS, NOT_F32 + ("int8_dense_f32",)),
+        }
+        started = {}
+        for i, (label, (args, _, _)) in enumerate(runs.items()):
+            out = tmp / f"out{i}" / "out.wav"
+            out.parent.mkdir()
+            cmd = [sys.executable, "-m", "edm_tts_tpu_torch.inference", *models, *args,
+                   "-o", str(out)]
+            started[label] = (out, subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE,
+                                                    stderr=subprocess.STDOUT, text=True))
+            procs.append(started[label][1])
+        servers = {}
+        for dtype in ("bfloat16", "float32"):
+            port = free_port()
+            cmd = [sys.executable, "-m", "edm_tts_tpu_torch.serve", *models, "--dtype", dtype,
+                   "--quantize", "int8", "--speaker", f"alice={flac}", "--host", "127.0.0.1",
+                   "--port", str(port)]
+            proc = subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+            servers[dtype] = (f"http://127.0.0.1:{port}", proc)
+            procs.append(proc)
+
+        # the f32 int8 engine in this process: the path's counted launches
+        t0 = time.perf_counter()
+        engine = TTSEngine.from_dirs(d["codec"], d["t2s"], d["s2a"], d["hubert"], device=dev,
+                                     dtype=torch.float32, quantize="int8", max_speech_len=600,
+                                     pred_iters=PRED_ITERS, s2a_steps=STEPS)
+        print(f"cli (h) f32 engine: TTSEngine.from_dirs in {time.perf_counter() - t0:.2f} s",
+              flush=True)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        engine.register_speaker("alice", wav24, 24000)
+        torch.cuda.synchronize()
+        t_reg = time.perf_counter() - t0
+        register_counts = all_launches()
+        t0 = time.perf_counter()
+        out = engine.synthesize(["An f32 request with a registered voice."], "alice",
+                                gt_lengths=[CLI_FRAMES])[0]
+        torch.cuda.synchronize()
+        t_syn = time.perf_counter() - t0
+        counts = all_launches()
+        hubert_layers = engine.tokenizer.semantic.output_layer
+        print(f"cli (h) f32 engine: register_speaker (3 s at 24 kHz) {t_reg:.3f} s, launches "
+              f"{register_counts}; synthesize ({CLI_FRAMES} frames) {t_syn:.3f} s; {smi}",
+              flush=True)
+        if register_counts != no_launches(attention_f32=hubert_layers):
+            fail(f"f32 registration: launches {register_counts}, want {hubert_layers} of "
+                 "attention_f32 and nothing else")
+        check_kernels("f32 engine (registration + request)", counts,
+                      F32_KERNELS + ("int8_dense_f32",), NOT_F32)
+        if out.shape != (CLI_FRAMES * engine.hop_length,) or not np.isfinite(out).all() \
+                or not float(np.sqrt(np.mean(out ** 2))) > 0:
+            fail(f"f32 engine request: {out.shape} samples, finite {np.isfinite(out).all()}")
+
+        # its tokenization against the plain versions on the request's own inputs
+        tok = engine.tokenizer
+        wav16 = resample(torch.from_numpy(wav24).to(dev), 24000, tok.sample_rate).cpu().numpy()
+        padded, normalized, _ = tok.prepare(wav16[None])
+        kernel = tok.run_steps(normalized, padded)
+        with plain_versions(ops):
+            plain = tok.run_steps(normalized, padded)
+        served = engine.prompt("alice")
+        if not (torch.equal(served.acoustic_codes, kernel["acoustic_codes"])
+                and torch.equal(served.semantic_codes, kernel["semantic_codes"])):
+            fail("f32 registration: the served codes differ from run_steps' on its inputs")
+        ids = (kernel["semantic_codes"] == plain["semantic_codes"]).float().mean().item()
+        lvl0 = (kernel["acoustic_codes"][:, 0] == plain["acoustic_codes"][:, 0]).float().mean().item()
+        rel_states = rel_l2(torch, kernel["states"], plain["states"])
+        rel_latents = rel_l2(torch, kernel["latents"], plain["latents"])
+        print(f"cli (h) f32 tokenization vs plain versions: latents rel l2 {rel_latents:.4g}, "
+              f"states rel l2 {rel_states:.4g} (tol {F32_TOKENIZE_REL_L2_TOL}), same ids "
+              f"{ids:.4f}, same level-0 codes {lvl0:.4f} (limit {F32_TOKENIZE_SAME}) over "
+              f"{kernel['semantic_codes'].shape[-1]} frames", flush=True)
+        if not (rel_states <= F32_TOKENIZE_REL_L2_TOL and rel_latents <= F32_TOKENIZE_REL_L2_TOL
+                and ids >= F32_TOKENIZE_SAME and lvl0 >= F32_TOKENIZE_SAME):
+            fail("f32 tokenization differs from the plain versions beyond its limits")
+        del engine, tok, kernel, plain
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the inference runs
+        hop = 320
+        for label, (out_path, proc) in started.items():
+            text, _ = proc.communicate(timeout=CLI_TIMEOUT_S)
+            print(f"cli (h) {label}: exit {proc.returncode}; output:\n{text.strip()}", flush=True)
+            if proc.returncode != 0:
+                fail(f"{label}: exit code {proc.returncode}")
+            _, ran, idle = runs[label]
+            check_kernels(label, launch_line(text), ran, idle)
+            wrote = [line for line in text.splitlines() if line.startswith("wrote ")]
+            want_files = 3 if "--text_file" in label else 1
+            if len(wrote) != want_files:
+                fail(f"{label}: wrote {len(wrote)} files, want {want_files}")
+            for line in wrote:
+                path = line[len("wrote "):].split(": ")[0]
+                sr, pcm = wavfile.read(path)
+                info = line[line.rindex("(") + 1:-1]
+                if "chunk frames" in info:
+                    frames = json.loads(info.split("chunk frames ")[1])
+                    want = join_waveforms([np.zeros(f * hop, np.float32) for f in frames], sr,
+                                          crossfade_ms=30.0).shape[0]
+                    if len(frames) < 3:
+                        fail(f"{label}: {len(frames)} chunks, want 3 or more")
+                else:
+                    frames = [int(info.split(", ")[1].split()[0])]
+                    want = frames[0] * hop
+                if "--one_shot" in label and frames != [250]:
+                    fail(f"{label}: {frames} frames, want the given 250")
+                rms = float(np.sqrt(np.mean(pcm.astype(np.float64) ** 2))) if pcm.size else 0.0
+                print(f"cli (h) {label}: {path}: {sr} Hz, {pcm.size} samples (want {want} from "
+                      f"frames {frames}), rms {rms:.1f}", flush=True)
+                if sr != 16000 or pcm.dtype != np.int16 or pcm.size != want or pcm.size == 0:
+                    fail(f"{label}: {path}: {sr} Hz {pcm.dtype} {pcm.size} samples, want {want}")
+                if (pcm == -32768).any() or not rms > 0:
+                    fail(f"{label}: {path}: non-finite (-32768) or silent samples")
+
+        # the servers
+        for dtype, (base, proc) in servers.items():
+            label = f"serve {dtype} int8"
+            deadline = time.perf_counter() + CLI_TIMEOUT_S
+            while True:
+                if proc.poll() is not None:
+                    fail(f"{label}: exited with {proc.returncode} before serving:\n"
+                         f"{proc.stdout.read()[-3000:]}")
+                try:
+                    with urllib.request.urlopen(f"{base}/healthz", timeout=5) as r:
+                        health = json.loads(r.read())
+                    break
+                except OSError:
+                    if time.perf_counter() > deadline:
+                        fail(f"{label}: no /healthz within {CLI_TIMEOUT_S} s")
+                    time.sleep(1.0)
+            if health != {"ok": True, "speakers": ["alice"]}:
+                fail(f"{label}: /healthz {health}")
+            status, data, lat = post_json(base, "/synthesize", {
+                "text": "Hello from the served CLI.", "speaker": "alice", "gt_length": 150})
+            sr, pcm = wavfile.read(io.BytesIO(data)) if status == 200 else (0, np.zeros(0))
+            if status != 200 or sr != 16000 or pcm.shape != (150 * hop,) or (pcm == -32768).any() \
+                    or not np.abs(pcm).max() > 0:
+                fail(f"{label}: /synthesize HTTP {status}, {sr} Hz, {pcm.shape}")
+            body = {"name": "bob", "sample_rate": 24000,
+                    "pcm_b64": base64.b64encode(wav24.astype("<f4").tobytes()).decode()}
+            status_spk, _, lat_spk = post_json(base, "/speakers", body)
+            with urllib.request.urlopen(f"{base}/healthz", timeout=30) as r:
+                health = json.loads(r.read())
+            with urllib.request.urlopen(f"{base}/stats", timeout=30) as r:
+                stats = json.loads(r.read())
+            print(f"cli (h) {label}: /synthesize {lat:.3f} s, /speakers {status_spk} "
+                  f"{lat_spk:.3f} s, /healthz {health}, /stats {stats}", flush=True)
+            if status_spk != 200 or health != {"ok": True, "speakers": ["alice", "bob"]}:
+                fail(f"{label}: /speakers HTTP {status_spk}, /healthz {health}")
+            proc.send_signal(signal.SIGTERM)
+            text, _ = proc.communicate(timeout=120)
+            print(f"cli (h) {label}: SIGTERM -> exit {proc.returncode}; output:\n{text.strip()}",
+                  flush=True)
+            if proc.returncode != 0:
+                fail(f"{label}: exit code {proc.returncode} after SIGTERM")
+            ran = (BF16_KERNELS + ("int8_dense",) if dtype == "bfloat16"
+                   else F32_KERNELS + ("int8_dense_f32",))
+            check_kernels(label, launch_line(text), ran,
+                          NOT_BF16 if dtype == "bfloat16" else NOT_F32)
+        return counts
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def training_path(torch, ops, dev, smi: str) -> dict:
     """(d): the s2a recipe at full width through ``run_s2a.main_from_dict``."""
     import tempfile
 
     import numpy as np
 
-    from edm_tts_tpu_torch.kernels import launches, reset_launches
+    from edm_tts_tpu_torch.kernels import all_launches, reset_launches
     from edm_tts_tpu_torch.profile_synthesis import s2a_train_recipe
     from edm_tts_tpu_torch.train import run_s2a
 
@@ -1330,7 +1749,7 @@ def training_path(torch, ops, dev, smi: str) -> dict:
         trainer = run_s2a.main_from_dict(raw, device=dev)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = dict(launches)
+        counts = all_launches()
         peak = torch.cuda.max_memory_allocated()
         steps = [r for r in trainer.history if "train/loss" in r]
         losses = [r["train/loss"] for r in steps]
@@ -1380,7 +1799,7 @@ def t2s_training_path(torch, ops, dev, smi: str) -> dict:
     import numpy as np
 
     from edm_tts_tpu_torch.data.token_shards import TokenShardWriter
-    from edm_tts_tpu_torch.kernels import launches, reset_launches
+    from edm_tts_tpu_torch.kernels import all_launches, reset_launches
     from edm_tts_tpu_torch.profile_synthesis import t2s_train_recipe
     from edm_tts_tpu_torch.train import run_t2s
 
@@ -1435,7 +1854,7 @@ def t2s_training_path(torch, ops, dev, smi: str) -> dict:
         trainer = run_t2s.main_from_dict(raw, device=dev)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = dict(launches)
+        counts = all_launches()
         peak = torch.cuda.max_memory_allocated()
         steps = [r for r in trainer.history if "train/loss" in r]
         losses = [r["train/loss"] for r in steps]
@@ -1481,7 +1900,7 @@ def remat_path(torch, dev, smi: str) -> dict:
     import dataclasses
     import tempfile
 
-    from edm_tts_tpu_torch.kernels import launches, reset_launches
+    from edm_tts_tpu_torch.kernels import all_launches, reset_launches
     from edm_tts_tpu_torch.profile_synthesis import s2a_train_recipe
     from edm_tts_tpu_torch.train import run_s2a
 
@@ -1516,7 +1935,7 @@ def remat_path(torch, dev, smi: str) -> dict:
                 loss.backward()
             torch.cuda.synchronize()
             peak = torch.cuda.max_memory_allocated()
-            counts = dict(launches)
+            counts = all_launches()
             grad = torch.cat([p.grad.flatten() for p in model.parameters() if p.requires_grad])
             model.zero_grad(set_to_none=True)
             rel = 0.0 if ref is None else rel_l2(torch, grad, ref)
@@ -1544,7 +1963,7 @@ def remat_path(torch, dev, smi: str) -> dict:
         reset_launches()
         trainer = run_s2a.main_from_dict(raw, device=dev)
         torch.cuda.synchronize()
-        counts = dict(launches)
+        counts = all_launches()
         peak = torch.cuda.max_memory_allocated()
         steps = [r for r in trainer.history if "train/loss" in r]
         step_s = [1.0 / r["train/steps_per_sec"] for r in steps]
@@ -1565,14 +1984,14 @@ def remat_path(torch, dev, smi: str) -> dict:
 
 def ablation_path(torch, smi: str) -> tuple[dict, list]:
     """(f): K6 through the profiling script's sweep at its shape."""
-    from edm_tts_tpu_torch.kernels import launches, reset_launches
+    from edm_tts_tpu_torch.kernels import all_launches, reset_launches
     from edm_tts_tpu_torch.profile_attn_variants import inputs, sweep
 
     q, k, v = inputs(seed=SEED)
     reset_launches()
     rows = sweep(q, k, v, n=ABLATION_RUNS)
     torch.cuda.synchronize()
-    counts = dict(launches)
+    counts = all_launches()
     want = no_launches(attn_variants=len(rows) * (ABLATION_RUNS + 1))
     for row in rows:
         print(f"ablation (f) B{q.shape[0]} T{q.shape[1]} H{q.shape[2]} D{q.shape[3]} "
@@ -1601,7 +2020,7 @@ def source_faults() -> int:
         return [sys.executable, "chip_smoke.py", FAULT_MODES.get(source, "--attention-kernels")]
 
     print("source faults: the sources as they are (must pass)", flush=True)
-    for source in ("attention.cu", "qdense.cu", "conv_gemm.cuh"):
+    for source in ("attention.cu", "qdense.cu", "conv_gemm.cuh", "qdense_f32.cu"):
         if subprocess.run(child(source), cwd=root, timeout=600).returncode != 0:
             fail(f"the {child(source)[-1]} cases reject the sources as they are")
     passed = []
@@ -1650,6 +2069,9 @@ def main() -> int:
     mode.add_argument("--codec-kernels", action="store_true",
                       help="only K1's one-request cases and K2's cases of the kernel phase; "
                            "exit 3 when one is outside its limits")
+    mode.add_argument("--f32-kernels", action="store_true",
+                      help="only the f32 K3 and K5 cases of the kernel phase; exit 3 when "
+                           "one is outside its limits")
     parser.add_argument("--parent", default=None, metavar="DIR",
                         help="another checkout of this repository whose K2 front to time "
                              "beside this one's in K2's cases")
@@ -1664,7 +2086,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.set_grad_enabled(False)
     part = ("attention" if args.attention_kernels else "int8" if args.int8_kernels
-            else "codec" if args.codec_kernels else None)
+            else "codec" if args.codec_kernels else "f32" if args.f32_kernels else None)
     parent_front = None
     if args.parent is not None:
         from pathlib import Path
@@ -1678,7 +2100,7 @@ def main() -> int:
             print(e.code, file=sys.stderr, flush=True)
             return 3
         return 0
-    from edm_tts_tpu_torch.kernels import build, launches, reset_launches
+    from edm_tts_tpu_torch.kernels import all_launches, build, reset_launches
     from edm_tts_tpu_torch.models.s2a import s2a_sample
     from edm_tts_tpu_torch.models.t2s import t2s_sample
     from edm_tts_tpu_torch.pipeline import e2e_synthesize
@@ -1769,7 +2191,7 @@ def main() -> int:
     reset_launches()
     out_a = request(True, SEED)
     torch.cuda.synchronize()
-    counts_a = dict(launches)
+    counts_a = all_launches()
     check("(a) full canvas", out_a, True, counts_a)
 
     # the same codes decoded through the plain versions agree with the kernels
@@ -1784,7 +2206,7 @@ def main() -> int:
     reset_launches()
     out_b = request(False, SEED + 1)
     torch.cuda.synchronize()
-    counts_b = dict(launches)
+    counts_b = all_launches()
     check("(b) predicted length", out_b, False, counts_b)
 
     # wall seconds per second of audio of (a), after the warm-up above
@@ -1835,20 +2257,25 @@ def main() -> int:
     gc.collect()  # so that no model of (a)-(g) counts in (d)'s peak memory
     torch.cuda.empty_cache()
 
-    # 7. (d) s2a training at full width
+    # 7. (h) model directories, the inference and serve CLIs, the f32 engine
+    counts_h = cli_path(torch, ops, dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 8. (d) s2a training at full width
     counts_d = training_path(torch, ops, dev, smi)
 
-    # 8. (e) t2s training at full width
+    # 9. (e) t2s training at full width
     counts_e = t2s_training_path(torch, ops, dev, smi)
 
-    # 9. gradient checkpointing on the full-width s2a
+    # 10. gradient checkpointing on the full-width s2a
     remat_path(torch, dev, smi)
 
-    # 10. (f) the attention-variant ablation through the profiling script
+    # 11. (f) the attention-variant ablation through the profiling script
     counts_f, _ = ablation_path(torch, smi)
 
-    by_path = {"a": counts_a, "b": counts_b, "c": counts_c, "g": counts_g, "d": counts_d,
-               "e": counts_e, "f": counts_f}
+    by_path = {"a": counts_a, "b": counts_b, "c": counts_c, "g": counts_g, "h": counts_h,
+               "d": counts_d, "e": counts_e, "f": counts_f}
     record = {"kernels": []}
     for name in KERNELS:
         cs = cases[name]
@@ -1857,8 +2284,9 @@ def main() -> int:
         record["kernels"].append(dict(
             name=name, route="cuda", **KERNELS[name],
             # the path the kernel runs on: K2 is off on the served masked
-            # decode, K4 runs on the training paths only, K6 on the ablation
-            launches=next((c[name] for c in (counts_c, counts_a, counts_d, counts_f)
+            # decode, K4 runs on the training paths only, K6 on the ablation,
+            # the f32 kernels on (h)'s f32 engine
+            launches=next((c[name] for c in (counts_c, counts_a, counts_d, counts_f, counts_h)
                            if c[name]), 0),
             launches_by_path={p: c[name] for p, c in by_path.items()},
             max_abs_err=max(c["max_abs_err"] for c in cs),

@@ -1,8 +1,10 @@
 """Hand-written CUDA kernels: build, bindings and launch counters.
 
 ``launches`` counts, per kernel, how many times its wrapper launched it on
-the card; ``int8_dense_shapes`` counts K5's launches per ``(M, K, N)`` and
-``resunit_shapes`` K1's per ``(B, T, C, dilation)``. They are the port's
+the card, and ``f32_launches`` the same for K3's and K5's f32 kernels
+(``all_launches`` joins the two); ``int8_dense_shapes`` counts K5's
+launches per ``(M, K, N)`` and ``resunit_shapes`` K1's per ``(B, T, C,
+dilation)``. They are the port's
 global state: a run resets them, drives the main path and reads them back
 to show which kernels the path went through, and at which shapes K5 and K1
 ran. Wrappers that take the plain version (CPU tensors) do
@@ -18,11 +20,15 @@ import torch
 
 KERNELS = ("resunit", "decoder_block", "attention", "attention_bwd", "int8_dense",
            "attn_variants")
+# K3's and K5's f32 kernels, counted in ``f32_launches`` so that ``launches``
+# keeps one entry per TPU kernel
+F32_KERNELS = ("attention_f32", "int8_dense_f32")
 # streaming multiprocessors of an H100 SXM (what the wrappers' tile choices
 # assume when they are not told the card's count)
 H100_SMS = 132
 
 launches: dict[str, int] = {name: 0 for name in KERNELS}
+f32_launches: dict[str, int] = {name: 0 for name in F32_KERNELS}
 int8_dense_shapes: Counter[tuple[int, int, int]] = Counter()
 resunit_shapes: Counter[tuple[int, int, int, int]] = Counter()
 
@@ -30,8 +36,15 @@ resunit_shapes: Counter[tuple[int, int, int, int]] = Counter()
 def reset_launches() -> None:
     for name in KERNELS:
         launches[name] = 0
+    for name in F32_KERNELS:
+        f32_launches[name] = 0
     int8_dense_shapes.clear()
     resunit_shapes.clear()
+
+
+def all_launches() -> dict[str, int]:
+    """Every kernel's count, the f32 kernels' included."""
+    return {**launches, **f32_launches}
 
 
 def refuse_grad(name: str, *tensors: torch.Tensor) -> None:

@@ -7,8 +7,11 @@ dilations 1, 3, 9 — then snake, k=7 conv to 1 channel and tanh. Module
 names follow the reference DAC's ``decoder.model.*`` keys.
 
 On the card the residual units run as kernel K1 and the s=4 and s=2 tail
-blocks as kernel K2, as the JAX package selects its Pallas kernels (even
-stride dividing 40, C_out <= 192).
+blocks as kernel K2, as the JAX package's "auto" rule selects its Pallas
+kernels: K2 for bf16 activations at an even stride dividing 40 and C_out
+<= 192 (``DecoderBlock.uses_kernel``), K1 for bf16 units
+(``layers.resunit_uses_kernel``); in f32 every block and unit runs the
+plain composition.
 
 ``valid_frames`` decodes a padded canvas so that each row's valid samples
 equal the decode of its exact-size canvas: invalid rows are zeroed after
@@ -86,9 +89,14 @@ class DecoderBlock(nn.Module):
                 bt.detach().float().repeat(self.stride).contiguous(),
             )
 
+    def uses_kernel(self, x: torch.Tensor, boundary: torch.Tensor | None) -> bool:
+        """Whether this block runs K2 on ``x``: a block the kernel takes
+        (``fused``), bf16 activations and no boundary to re-impose."""
+        return self.fused and x.dtype == torch.bfloat16 and boundary is None
+
     def forward(self, x: torch.Tensor, boundary: torch.Tensor | None = None) -> torch.Tensor:
         snake0, tconv, *units = self.block
-        if self.fused and boundary is None:
+        if self.uses_kernel(x, boundary):
             if self.kernel_args is None:
                 raise RuntimeError("DecoderBlock: weights not packed; load them through "
                                    "edm_tts_tpu_torch.convert or call pack()")

@@ -9,6 +9,12 @@ DAC's key names. Activations are channel-last ``(B, T, C)``.
 The loader then calls ``pack`` on the modules the decoder runs through the
 kernels, which lays their weights out once as the kernels take them; a
 change of the weights afterwards needs another ``pack``.
+
+Which units take the kernel is the JAX package's "auto" rule
+(edm_tts_tpu/models/codec/layers.py, ``ResidualUnit``): K1 for bf16
+activations at C <= 768 (``resunit_uses_kernel``); otherwise (f32, wider
+units) the plain composition on the module's own weights, on the card as on
+the CPU.
 """
 
 from __future__ import annotations
@@ -17,6 +23,18 @@ import torch
 from torch import nn
 
 from edm_tts_tpu_torch.ops import conv1d, conv_transpose1d, fused_residual_unit, snake
+from edm_tts_tpu_torch.ops.resunit import resunit_reference
+
+# the widest unit the JAX package gives its Pallas kernel (its f32 weights
+# at C 768 filled the TPU's VMEM; the rule is kept so both packages run the
+# same units through their kernels)
+RESUNIT_KERNEL_MAX_C = 768
+
+
+def resunit_uses_kernel(x: torch.Tensor, channels: int) -> bool:
+    """Whether a residual unit of ``channels`` runs K1 on ``x``: bf16 and
+    C <= 768, as the JAX package's "auto" rule picks its Pallas kernel."""
+    return x.dtype == torch.bfloat16 and channels <= RESUNIT_KERNEL_MAX_C
 
 
 class Snake(nn.Module):
@@ -80,8 +98,10 @@ class ResidualUnit(nn.Module):
     """Snake -> dilated k=7 conv -> snake -> k=1 conv, plus the input.
 
     ``block`` mirrors the reference's ``[Snake, WNConv1d, Snake, WNConv1d]``.
-    Runs through ``ops.fused_residual_unit``: kernel K1 on the card, the
-    plain composition on the CPU, on the layouts ``pack`` made.
+    Where ``resunit_uses_kernel`` says so, runs through
+    ``ops.fused_residual_unit`` (kernel K1 on the card, the plain
+    composition on the CPU) on the layouts ``pack`` made; otherwise the
+    plain composition on ``folded()``.
     """
 
     def __init__(self, dim: int, dilation: int = 1, *, device=None, dtype=None):
@@ -115,6 +135,8 @@ class ResidualUnit(nn.Module):
         if self.kernel_args is None:
             raise RuntimeError("ResidualUnit: weights not packed; load them through "
                                "edm_tts_tpu_torch.convert or call pack()")
+        if not resunit_uses_kernel(x, self.block[1].weight.shape[0]):
+            return resunit_reference(x, *self.folded(), dilation=self.dilation)
         return fused_residual_unit(x.contiguous(), *self.kernel_args, self.dilation)
 
 

@@ -13,13 +13,18 @@ edm_tts_tpu/models/tokenizer/audio_tokenizer.py).
 
 The device work (codec encode, RVQ, HuBERT, nearest centroid; ``run_steps``,
 one step at a time) runs on the codec's device, in the dtype each model was
-built in. On the card the encoder's residual units run as K1 and HuBERT's
-attention as K3, which take bf16 only: a tokenizer built in f32 there
-raises (f32 on the card is not ported). Reading audio files
-(``compute_codes_from_file``) is not ported.
+built in. On the card, in bf16, the encoder's residual units run as K1 and
+HuBERT's attention as K3; in f32 (the JAX tokenizer's default) the units
+run the plain composition, as the JAX codec picks them, and HuBERT's
+attention K3's f32 kernel, with TF32 off for the whole run
+(``ops.precision.exact_f32``: cuDNN's f32 convolutions would otherwise take
+TF32). ``compute_codes_from_file`` reads a WAV or FLAC file
+(``data.audio_io``) and resamples it on the host.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -28,6 +33,7 @@ from edm_tts_tpu_torch.models.codec import Codec
 from edm_tts_tpu_torch.models.tokenizer.semantic_hubert import SemanticTokenizerHubert
 from edm_tts_tpu_torch.ops.convolution import encoder_output_length
 from edm_tts_tpu_torch.ops.loudness import normalize_loudness
+from edm_tts_tpu_torch.ops.precision import exact_f32
 
 
 class AudioTokenizer:
@@ -61,13 +67,11 @@ class AudioTokenizer:
     def _check(self) -> None:
         if self.semantic is None:
             raise ValueError("this tokenizer has no semantic model (HuBERT + k-means)")
-        if self.device.type == "cuda":
-            for name, dtype in (("codec", self.codec.dtype), ("HuBERT", self.semantic.dtype)):
-                if dtype != torch.bfloat16:
-                    raise ValueError(
-                        f"tokenization on the card runs the codec and HuBERT in bf16 (kernels "
-                        f"K1 and K3 take bf16 only; f32 on the card is not ported); the "
-                        f"{name} is {dtype}")
+
+    def _precision(self):
+        """``exact_f32`` when a model runs in f32 on the card, else nothing."""
+        f32 = torch.float32 in (self.codec.dtype, self.semantic.dtype)
+        return exact_f32() if f32 and self.device.type == "cuda" else contextlib.nullcontext()
 
     # the device steps, in order, as ``run_steps`` names them
     STEPS = ("codec encoder", "RVQ", "HuBERT conv stack", "HuBERT layers", "k-means")
@@ -77,10 +81,15 @@ class AudioTokenizer:
                   step=None) -> dict[str, torch.Tensor]:
         """``compute_codes_batch``'s device work, one step of ``STEPS`` at a
         time, each run as ``step(name, fn)`` (by default ``fn()``; a profiler
-        times them). Checks no dtype: the caller does. Returns the encoder's
-        ``latents`` ``(B, T', D)``, ``acoustic_codes`` ``(B, Q, T')``, HuBERT's
-        ``states`` ``(B, T', H)`` and ``semantic_codes`` ``(B, T')``."""
-        step = step or (lambda name, fn: fn())
+        times them), with TF32 off when a model is f32 on the card. Returns
+        the encoder's ``latents`` ``(B, T', D)``, ``acoustic_codes`` ``(B, Q,
+        T')``, HuBERT's ``states`` ``(B, T', H)`` and ``semantic_codes``
+        ``(B, T')``."""
+        with self._precision():
+            return self._run_steps(normalized_audio, padded_audio, attention_mask,
+                                   step or (lambda name, fn: fn()))
+
+    def _run_steps(self, normalized_audio, padded_audio, attention_mask, step):
         dev, sem = self.device, self.semantic
         normalized = torch.as_tensor(normalized_audio, device=dev).float()
         padded = torch.as_tensor(padded_audio, device=dev).float()
@@ -125,6 +134,20 @@ class AudioTokenizer:
             raise ValueError(f"acoustic/semantic code length mismatch: {tuple(a.shape)} vs "
                              f"{tuple(s.shape)}")
         return {**out, "input_db": input_db}
+
+    def compute_codes_from_file(self, file_path: str, offset: int = 0,
+                                num_frames: int = -1) -> dict:
+        """Read an audio file (WAV or FLAC; ``offset`` and ``num_frames`` in
+        samples), resample its first channel to 16 kHz on the host and
+        tokenize it (``compute_codes``)."""
+        from edm_tts_tpu_torch.data.audio_io import load_audio
+        from edm_tts_tpu_torch.ops.resample import resample_numpy
+
+        audio, sr = load_audio(file_path, offset, num_frames)
+        wav = audio[0]
+        if sr != self.sample_rate:
+            wav = resample_numpy(wav, sr, self.sample_rate)
+        return self.compute_codes(wav[None])
 
     def get_code_lengths(self, input_lengths) -> np.ndarray:
         """Frames for (padded) audio lengths: the encoder's conv arithmetic."""

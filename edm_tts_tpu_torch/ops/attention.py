@@ -21,6 +21,12 @@ scale the scores by the true D and slice the outputs (``padded_depth``,
 ``pad_depth``); zero lanes change no score and no output lane that is kept.
 K3's query tile (64 or 128 rows per block) is ``attention_query_tile``,
 or the caller's ``block_q``.
+
+f32 q, k, v on the card go to K3's f32 kernel (csrc/attention_f32.cu: f32
+products on the FMA units, f32 output, as the Pallas kernel keeps the
+input dtype); it takes D % 4 == 0 (the wrapper zero-pads other D) and has
+no backward: ``mha`` raises when autograd needs a gradient through f32
+attention on the card.
 """
 
 from __future__ import annotations
@@ -30,7 +36,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from edm_tts_tpu_torch.kernels import H100_SMS, launches, sm_count
+from edm_tts_tpu_torch.kernels import H100_SMS, f32_launches, launches, sm_count
 from edm_tts_tpu_torch.kernels.build import check_launch, library
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
@@ -171,7 +177,8 @@ def flash_mha(
 ):
     """Attention through K3 on the card, ``mha_reference`` on the CPU.
 
-    On CUDA: q/k/v bf16 contiguous ``(B, T, H, D)`` with ``D <= 64``. With
+    On CUDA: q/k/v bf16 or f32 (K3's f32 kernel, output f32) contiguous
+    ``(B, T, H, D)`` with ``D <= 64``; ``block_q`` is K3's bf16 tile. With
     ``return_lse`` also returns the f32 ``(B*H, T_q)`` LSE. The output is
     not attached to autograd; ``mha`` is the differentiable entry point.
     K3 takes ``attention_query_tile``'s query rows per block for this card;
@@ -181,6 +188,8 @@ def flash_mha(
     if not q.is_cuda:
         out = mha_reference(q, k, v, mask=mask)
         return (out, attention_lse_reference(q, k, mask=mask)) if return_lse else out
+    if q.dtype == torch.float32:
+        return _flash_mha_f32(q, k, v, mask, return_lse)
     b, tq, h, d = q.shape
     tk = k.shape[1]
     _check_qkv("flash_mha", q, k, v)
@@ -197,6 +206,32 @@ def flash_mha(
     )
     check_launch(err, "flash_mha")
     launches["attention"] += 1
+    out = out if dp == d else out[..., :d].contiguous()
+    return (out, lse) if return_lse else out
+
+
+def _flash_mha_f32(q, k, v, mask, return_lse: bool):
+    """K3's f32 kernel: q, k, v contiguous f32 ``(B, T, H, D)``, D <= 64."""
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    for t in (q, k, v):
+        if t.dtype != torch.float32 or not t.is_contiguous() or t.device != q.device:
+            raise ValueError(f"flash_mha: q, k, v must be contiguous f32 on {q.device}")
+    if k.shape != (b, tk, h, d) or v.shape != k.shape or d > 64:
+        raise ValueError(f"flash_mha: shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)} (need matching B, H, D <= 64)")
+    mask, mask_ptr = _mask_ptr("flash_mha", mask, b, tk, q.device)
+    dp = -(-d // 4) * 4
+    q, k, v = (_aligned(pad_depth(x, dp)) for x in (q, k, v))
+    out = torch.empty_like(q)
+    lse = torch.empty((b * h, tq), dtype=torch.float32, device=q.device) if return_lse else None
+    err = library().edm_attention_f32(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(),
+        None if lse is None else lse.data_ptr(), b, tq, tk, h, dp, d ** -0.5,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    check_launch(err, "flash_mha")
+    f32_launches["attention_f32"] += 1
     out = out if dp == d else out[..., :d].contiguous()
     return (out, lse) if return_lse else out
 
@@ -287,5 +322,8 @@ def mha(
         raise ValueError("mha: implementation 'xla' (the plain attention) is not run on the "
                          "card; use 'auto' or 'pallas'")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        if q.dtype == torch.float32:
+            raise RuntimeError("mha: f32 attention on the card is inference-only (K3's f32 "
+                               "kernel has no backward); call it under torch.no_grad()")
         return FlashMHA.apply(q, k, v, mask)
     return flash_mha(q, k, v, mask=mask)

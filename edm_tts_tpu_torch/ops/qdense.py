@@ -11,6 +11,9 @@ cast to ``x.dtype``: kernel K5 for a CUDA tensor, ``int8_dense_reference``
 (the JAX package's ``implementation="xla"`` branch) for a CPU tensor. K5
 takes one of ``INT8_TILES`` per launch, ``int8_dense_tile``'s choice for
 the shape and the card unless the caller forces one.
+f32 activations on the card go to K5's f32 kernel (csrc/qdense_f32.cu: the
+int8 weight widened to f32, f32 products and output, as the Pallas kernel
+widens the weight to the activation's dtype); it takes no tile.
 ``implementation="w8a8"`` also quantizes the activations per row and runs
 an s8 x s8 -> s32 product; it is plain PyTorch in both packages
 (``torch._int_mm`` on the card, an int32 matmul on the CPU).
@@ -23,7 +26,8 @@ import functools
 import torch
 from torch import nn
 
-from edm_tts_tpu_torch.kernels import H100_SMS, int8_dense_shapes, launches, refuse_grad, sm_count
+from edm_tts_tpu_torch.kernels import (H100_SMS, f32_launches, int8_dense_shapes, launches,
+                                      refuse_grad, sm_count)
 from edm_tts_tpu_torch.kernels.build import check_launch, library
 
 MODES = ("int8", "w8a8")
@@ -105,8 +109,9 @@ def int8_dense(x: torch.Tensor, kernel_q: torch.Tensor, kernel_scale: torch.Tens
                tile: tuple[int, int, int] | None = None) -> torch.Tensor:
     """``x @ dequant(kernel_q)``: ``(..., K)`` -> ``(..., N)`` in ``x.dtype``.
 
-    ``implementation``: ``"int8"`` (K5 on CUDA: x bf16, ``K % 32 == 0`` and
-    ``N % 128 == 0``, else it raises) or ``"w8a8"``. K5 is inference-only:
+    ``implementation``: ``"int8"`` (K5 on CUDA: x bf16, or f32 through K5's
+    f32 kernel, ``K % 32 == 0`` and ``N % 128 == 0``, else it raises) or
+    ``"w8a8"``. K5 is inference-only:
     on CUDA it raises when autograd would need a gradient through it.
     ``tile`` forces K5's launch, ``(output columns, x rows, splits)`` with
     the first two one of ``INT8_TILES`` dividing N and 1 <= splits <=
@@ -123,8 +128,8 @@ def int8_dense(x: torch.Tensor, kernel_q: torch.Tensor, kernel_scale: torch.Tens
     if not x.is_cuda:
         return int8_dense_reference(xf, kernel_q, kernel_scale).reshape(*lead, n)
     refuse_grad("int8_dense", x, kernel_scale)
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"int8_dense: K5 takes bf16 activations, got {x.dtype}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"int8_dense: K5 takes bf16 or f32 activations, got {x.dtype}")
     if not quantizable_shape(k, n):
         raise ValueError(f"int8_dense: K5 needs K % 32 == 0 and N % 128 == 0, got K={k}, N={n}")
     if kernel_q.dtype != torch.int8 or kernel_scale.dtype != torch.float32 \
@@ -136,6 +141,8 @@ def int8_dense(x: torch.Tensor, kernel_q: torch.Tensor, kernel_scale: torch.Tens
             raise ValueError(f"int8_dense: {name} must be contiguous, 16-byte aligned, "
                              f"on {x.device}")
     m = xf.shape[0]
+    if x.dtype == torch.float32:
+        return _int8_dense_f32(xf, kernel_q, kernel_scale).reshape(*lead, n)
     if tile is None:
         tile = int8_dense_tile(m, k, n, sm_count(x.device.index or 0))
     elif (len(tile) != 3 or tuple(tile[:2]) not in INT8_TILES or n % tile[0]
@@ -155,6 +162,22 @@ def int8_dense(x: torch.Tensor, kernel_q: torch.Tensor, kernel_scale: torch.Tens
     launches["int8_dense"] += 1
     int8_dense_shapes[(m, k, n)] += 1
     return out.reshape(*lead, n)
+
+
+def _int8_dense_f32(xf: torch.Tensor, kernel_q: torch.Tensor,
+                    kernel_scale: torch.Tensor) -> torch.Tensor:
+    """K5's f32 kernel on checked ``(M, K)`` f32 activations."""
+    m, n = xf.shape[0], kernel_q.shape[1]
+    out = torch.empty((m, n), dtype=torch.float32, device=xf.device)
+    if m == 0:
+        return out
+    err = library().edm_int8_dense_f32(
+        xf.data_ptr(), kernel_q.data_ptr(), kernel_scale.data_ptr(), out.data_ptr(),
+        m, kernel_q.shape[0], n, torch.cuda.current_stream(xf.device).cuda_stream,
+    )
+    check_launch(err, "int8_dense")
+    f32_launches["int8_dense_f32"] += 1
+    return out
 
 
 class QLinear(nn.Module):

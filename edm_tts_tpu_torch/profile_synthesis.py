@@ -62,14 +62,16 @@ SERVED_TEXTS = (
 )
 
 
-def full_width_models(device, seed: int) -> tuple[TextToSemantic, InjectionConformer]:
-    """bench.py's t2s and s2a (with the default codec) in bf16, from ``seed``."""
+def full_width_models(device, seed: int, dtype=torch.bfloat16
+                      ) -> tuple[TextToSemantic, InjectionConformer]:
+    """bench.py's t2s and s2a (with the default codec) in ``dtype`` (bf16
+    unless asked), from ``seed``."""
     s2a_cfg = S2AConfig(codec=CodecConfig())
     t2s_cfg = T2SConfig(hidden_size=384, main_encoder_num_layers=12, main_encoder_num_heads=8,
                         main_encoder_dim_head=24, length_predictor_num_heads=8,
                         length_predictor_dim_head=24)
-    s2a = InjectionConformer(s2a_cfg, device=device, dtype=torch.bfloat16).eval()
-    t2s = TextToSemantic(t2s_cfg, device=device, dtype=torch.bfloat16).eval()
+    s2a = InjectionConformer(s2a_cfg, device=device, dtype=dtype).eval()
+    t2s = TextToSemantic(t2s_cfg, device=device, dtype=dtype).eval()
     init_random_weights(s2a, seed)
     init_random_weights(t2s, seed + 1)
     return t2s, s2a

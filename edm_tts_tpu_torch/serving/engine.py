@@ -14,8 +14,9 @@ Speaker prompts are tokenized once and reused by every request:
 device, then the codec encoder with its RVQ and HuBERT with k-means through
 ``AudioTokenizer``: K1 on the encoder's residual units and K3 in HuBERT's
 attention on the card), ``register_speaker_codes`` takes precomputed codes.
-The engine is built from in-memory models with ``from_models``; loading
-model directories is not ported yet.
+The engine is built from model directories with ``from_dirs`` (the JAX
+engine's constructor: ``utils.hub``'s loaders, in the engine's ``dtype``),
+or from in-memory models with ``from_models``.
 
 Randomness: one CPU ``torch.Generator`` seeded with the request's seed
 drives both samplers. It cannot reproduce the JAX package's
@@ -103,6 +104,29 @@ class TTSEngine:
         ``text_bucket``, ``length_bucket`` and ``batch_buckets``.
         """
         return cls(t2s, s2a, semantic, **opts)
+
+    @classmethod
+    def from_dirs(cls, codec_model: str, t2s_model: str, s2a_model: str,
+                  hubert_model: str | None, *, device: str | torch.device = "cuda",
+                  dtype: torch.dtype = torch.bfloat16, **opts) -> "TTSEngine":
+        """An engine over model directories (``utils.hub``'s formats), as
+        the JAX engine is built: every model in ``dtype`` on ``device`` (the
+        card unless the caller asks for the CPU). The prompt tokenizer's
+        codec comes from ``codec_model`` and HuBERT with its centroids from
+        ``hubert_model`` (None: speakers come as codes); the s2a decodes
+        through its own codec. ``opts`` are ``from_models``' (``quantize``,
+        ``quantize_t2s``, ``quantize_s2a``, ...)."""
+        from edm_tts_tpu_torch.utils import hub
+
+        if dtype not in (torch.bfloat16, torch.float32):
+            raise ValueError(f"from_dirs: dtype must be torch.bfloat16 or torch.float32, "
+                             f"got {dtype!r}")
+        kw = dict(device=device, dtype=dtype)
+        semantic = None if hubert_model is None else hub.load_semantic_tokenizer(hubert_model, **kw)
+        engine = cls(hub.load_t2s(t2s_model, **kw), hub.load_s2a(s2a_model, **kw), semantic,
+                     device=device, **opts)
+        engine.tokenizer = AudioTokenizer(hub.load_codec(codec_model, **kw), semantic)
+        return engine
 
     # -- speakers -------------------------------------------------------
     @property

@@ -6,7 +6,8 @@ scripts: a device median over CUDA events, each run queued behind a ~1 ms
 microseconds through Python) is not counted. ``bound`` is the larger of
 the bytes a function must move over the memory rate, its products over
 the tensor cores' rate and its exponentials over the special-function
-units' rate, at the H100 SXM's published peaks.
+units' rate, at the H100 SXM's published peaks (f32 products at the f32
+FMA rate).
 """
 
 from __future__ import annotations
@@ -18,6 +19,9 @@ import torch
 # dense bf16 tensor cores and HBM3 (NVIDIA's H100 SXM data sheet)
 PEAK_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+# f32 FMA outside the tensor cores (the data sheet's "FP32"): the peak of
+# the f32 kernels (K3's and K5's), which run no tensor-core product
+PEAK_F32_FLOPS = 67e12
 # f32 exponentials (ex2 on the MUFU, 16 per SM per clock: 132 SMs at
 # ~1.83 GHz), the figure FlashAttention-3 gives for the H100 SXM5; ex2 on
 # packed bf16x2 does two per operation
@@ -41,11 +45,13 @@ def median_ms(fn, n: int = 20) -> float:
     return statistics.median(times)
 
 
-def bound(flops: float, nbytes: float, exps: float = 0.0) -> tuple[float, str]:
+def bound(flops: float, nbytes: float, exps: float = 0.0,
+          peak_flops: float = PEAK_FLOPS) -> tuple[float, str]:
     """(least time in ms, "operations" or "bytes"): ``exps`` counts MUFU
     operations (one per f32 exponential, one per bf16x2 pair); products
     and exponentials run on separate units, so the operations' time is the
-    larger of the two."""
-    ops_ms = max(flops / PEAK_FLOPS, exps / PEAK_EXP) * 1e3
+    larger of the two. ``peak_flops``: the products' rate (PEAK_F32_FLOPS
+    for f32 products off the tensor cores)."""
+    ops_ms = max(flops / peak_flops, exps / PEAK_EXP) * 1e3
     bytes_ms = nbytes / PEAK_BYTES * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")

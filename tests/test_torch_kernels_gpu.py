@@ -410,8 +410,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
                 implementation="xla")
     wq, scale = ops.quantize_weight(torch.randn(64, 256, device=dev))
     xb = torch.randn(5, 64, device=dev).bfloat16()
-    with pytest.raises(ValueError):  # f32 activations
-        ops.int8_dense(xb.float(), wq, scale)
+    with pytest.raises(ValueError):  # f16 activations (K5 takes bf16, and f32 in its f32 kernel)
+        ops.int8_dense(xb.half(), wq, scale)
     with pytest.raises(ValueError):  # N % 128 != 0
         ops.int8_dense(xb, wq[:, :192].contiguous(), scale[:192].contiguous())
     with pytest.raises(ValueError):  # a row start that is not 16-byte aligned
