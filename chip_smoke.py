@@ -31,9 +31,12 @@ Phases, each reported on its own line:
      TFLOP/s, exponentials over 3.9e12/s, the H100 SXM's peaks); and K3's
      and K5's f32 kernels against their plain f32 versions (TF32 off) at
      the f32 path's shapes (ATTENTION_F32_CASES; K5 at the 31 int8 cases
-     with f32 activations), beside SDPA f32 and the f32 matmul on the
+     with f32 activations), and K4's f32 kernel at the bf16 K4's cases,
+     beside SDPA f32 (for K4 its f32 backward) and the f32 matmul on the
      dequantized weight, bound at the 67 TFLOP/s f32 FMA peak, within
-     2^-16 relative l2 and 2^-14 of the largest output;
+     2^-16 relative l2 and 2^-14 of the largest output; K1 and K3 also at
+     path (j)'s dump shapes (the encoder's 12 units at B8 x 960160 samples,
+     HuBERT at B8 T3000 with a ragged key mask);
   4. end to end: full-width models (the default codec and s2a, the t2s of
      bench.py; edm_tts_tpu_torch/profile_synthesis.py builds them) from a
      seeded random init in bf16 answer (a) a 10 s request with a given
@@ -113,7 +116,26 @@ Phases, each reported on its own line:
      each; then 2 steps of the s2a recipe as B32 in one micro-batch under
      "mha" (step time, peak memory);
  11. ablation (f): K6's variants and query tiles at B32 T1408 H16 D24
-     through profile_attn_variants.sweep, with its launches counted.
+     through profile_attn_variants.sweep, with its launches counted;
+ 12. f32 training (i): the s2a recipe with bf16: false (B32 x 768 in 4
+     micro-batches, TF32 off): first one micro-batch's loss and gradient
+     through K3-f32 + K4-f32 against the plain f32 attention (limits
+     TRAIN_F32_*) and under the remat policies "mha" (no extra K3-f32) and
+     "full"; then 3 steps with watch: all and a tracker (TRACKER_SPEC), the
+     watch norms of every trainable tensor finite and at the tracker; then
+     3 steps of the t2s recipe at f32; launches exactly depth x
+     micro-batches x steps of K3-f32 and of K4-f32 and nothing else;
+     prints step seconds, frames per second and peak memory;
+ 13. offline preprocessing (j): seeded FLACs (40 LibriSpeech-layout
+     utterances of 3-15 s, two 4-minute LibriLight books), a full-width f32
+     HuBERT-large HF directory and the default codec; ``python -m
+     edm_tts_tpu_torch.hubert_kmeans`` (layer 18, K 1024) writes centroids
+     into a new HuBERT directory, ``python -m edm_tts_tpu_torch.dump_tokens``
+     tokenizes the 8 windows of 60 s in one bf16 batch of 8 with them (each
+     CLI's launches checked, the shards' shapes and ranges), then one step
+     of the s2a recipe on the shards read by run_s2a.code_batch_iterator;
+     and the k-means fit at the CLI's default size (1,024,000 x 1024 f32
+     seeded frames), its inertia never rising (KMEANS_INERTIA_RISE_TOL).
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
 There is no CPU fallback: without a CUDA device the script fails.
@@ -121,7 +143,7 @@ There is no CPU fallback: without a CUDA device the script fails.
     python3 chip_smoke.py --source-faults
 
 plants each of SOURCE_FAULTS in a copy of K1's and K2's (the GEMM they
-share), K3's, K4's, K5's, K6's or the f32 K3's and K5's CUDA source (the
+share), K3's, K4's, K5's, K6's or the f32 K3's, K4's and K5's CUDA source (the
 package and this script copied into a temporary directory, built there)
 and runs the cases of phase 3 that hold that kernel on it: K1's
 one-request and encoder cases and K2's (``--codec-kernels``), K5's
@@ -227,6 +249,32 @@ BATCH_ACOUSTIC_SAME = 0.9
 BATCH_PROMPT_SECONDS = (3.0, 5.5, 8.0, 10.0)
 # (f): timed runs per (variant, query tile) of the profiling script's sweep
 ABLATION_RUNS = 10
+# (i): one s2a micro-batch (B8 x 768, f32, TF32 off) through K3-f32 + K4-f32
+# against the same step through the plain f32 attention: each kernel call
+# is ~1e-6 off its plain version, which 16 layers and the backward leave
+# far under 1e-4 of the flattened gradient and 1e-5 of the loss; an operand
+# rounded to TF32 or bf16 moves them by 1e-3 or more, dk scaled by sqrt(D)
+# by ~0.25. The remat policies at f32 recompute the same arithmetic, so
+# their gradients are held to the same limit. Set before the first run.
+TRAIN_F32_GRAD_REL_L2_TOL = 1e-4
+TRAIN_F32_LOSS_REL_TOL = 1e-5
+# (i): the s2a and t2s recipes at f32 (bf16: false) cut to 3 steps
+TRAIN_F32_STEPS = 3
+# (i): the tracker the f32 s2a run names in its recipe (a module of the port)
+TRACKER_SPEC = "edm_tts_tpu_torch.utils.trackers:make_tracker"
+# (j): offline preprocessing on seeded audio: a LibriSpeech-layout set of
+# 3-15 s utterances for hubert_kmeans and a LibriLight-layout set of two
+# 4-minute books, 8 windows of 60 s, for dump_tokens' default batch of 8
+PREPROCESS_UTTERANCES = 40
+LIBRILIGHT_BOOK_SECONDS = 240.0
+DUMP_WINDOW_SECONDS = 60.0
+DUMP_BATCH = 8
+# (j): the k-means fit at hubert_kmeans' default size (K 1024 x 1000 frames
+# per cluster, D 1024, niter 20, nredo 5). Lloyd's inertia never rises in
+# exact arithmetic; the f32 three-term distances over D 1024 may move a
+# converged run's sum by ~1e-7 relative. Set before the first run.
+KMEANS_INERTIA_RISE_TOL = 1e-5
+KMEANS_K, KMEANS_DIM, KMEANS_FRAMES_PER_CLUSTER = 1024, 1024, 1000
 
 KERNELS = {
     "resunit": dict(source="edm_tts_tpu_torch/csrc/resunit.cu",
@@ -245,6 +293,8 @@ KERNELS = {
                           replaces="edm_tts_tpu/ops/pallas_attention.py:83"),
     "int8_dense_f32": dict(source="edm_tts_tpu_torch/csrc/qdense_f32.cu",
                            replaces="edm_tts_tpu/ops/qdense.py:102"),
+    "attention_bwd_f32": dict(source="edm_tts_tpu_torch/csrc/attention_bwd_f32.cu",
+                              replaces="edm_tts_tpu/ops/pallas_attention.py:234"),
 }
 # K3's f32 kernel at the f32 path's shapes (label: B, T, H, D, key lengths or
 # None): HuBERT-large on a 3 s and a 10 s prompt and its masked batch, the
@@ -358,10 +408,23 @@ SOURCE_FAULTS.update({
         ("const int nk = K / kBK;", "const int nk = (K - 1) / kBK;")]),
     "K5 f32 ragged last row tile not stored": ("qdense_f32.cu", [
         ("if (m >= M) continue;", "if (m >= M / kBM * kBM) continue;")]),
+    # K4's f32 kernel: delta left out of ds (both kernels), the mask ignored
+    # (both kernels), the dq kernel's last key tile skipped
+    "K4 f32 delta dropped": ("attention_bwd_f32.cu", [
+        ("p * (dp - dl[i]) * sc", "p * dp * sc"), ("p * (dp - del) * sc", "p * dp * sc")]),
+    "K4 f32 mask ignored": ("attention_bwd_f32.cu", [
+        ("const bool counts = live && (mask == nullptr || uniform || mask[(size_t)b * Tk + kj]);",
+         "const bool counts = live;"),
+        ("const unsigned char* mrow = (mask != nullptr && !uniform) ? mask + (size_t)b * Tk : nullptr;",
+         "const unsigned char* mrow = nullptr;")]),
+    "K4 f32 last key tile skipped": ("attention_bwd_f32.cu", [
+        ("valid[j] = j < n && (mrow == nullptr || mrow[t0 + j]);",
+         "valid[j] = j < n && t0 + kTile < Tk && (mrow == nullptr || mrow[t0 + j]);")]),
 })
 # the --source-faults mode of each fault's source
 FAULT_MODES = {"conv_gemm.cuh": "--codec-kernels", "qdense.cu": "--int8-kernels",
-               "attention_f32.cu": "--f32-kernels", "qdense_f32.cu": "--f32-kernels"}
+               "attention_f32.cu": "--f32-kernels", "qdense_f32.cu": "--f32-kernels",
+               "attention_bwd_f32.cu": "--f32-kernels"}
 
 
 class CheckFailed(SystemExit):
@@ -540,6 +603,53 @@ def kernel_phase(torch, ops, part: str | None = None, parent_front=None) -> dict
                 ("scaled_dot_product_attention f32", lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, attn_mask=sdpa_mask)),
                 tols=(F32_REL_L2_TOL, F32_MAX_ABS_TOL))
+    # K4's f32 kernel at the bf16 K4's cases (ATTENTION_TRAIN_CASES, f32
+    # inputs), from K3-f32's LSE; the plain version takes the plain LSE.
+    # Faults: delta dropped, the mask ignored, the last query tile's dO
+    # dropped, q rounded to TF32. Library call: SDPA's f32 backward (forward
+    # and backward timed, the forward subtracted). Bound: the five products
+    # at the f32 FMA peak.
+    for label, (b, t, h, d, lens) in ATTENTION_TRAIN_CASES if part in (None, "f32") else ():
+        q, k, v, g = (normal(b, t, h, d) for _ in range(4))
+        n_keys = [t] * b if lens is None else list(lens)
+        mask = None if lens is None else (
+            torch.arange(t, device=dev)[None] < torch.tensor(lens, device=dev)[:, None])
+        o, lse = ops.flash_mha(q, k, v, mask=mask, return_lse=True)
+        lse_ref = ops.attention_lse_reference(q, k, mask=mask)
+        g_cut = g.clone()
+        g_cut[:, (t - 1) // 64 * 64:] = 0
+        key_work = sum(n_keys) * t * h * d
+
+        def bwd_plain(q=q, mask=mask, o=o, g=g):
+            return ops.flash_mha_bwd_reference(q, k, v, mask, o, lse_ref, g)
+
+        faults = {"delta dropped": lambda: bwd_plain(o=torch.zeros_like(o)),
+                  "last query tile skipped": lambda: bwd_plain(g=g_cut),
+                  "tf32 q": lambda: bwd_plain(q=tf32(q))}
+        if mask is not None:
+            faults["mask ignored"] = lambda: bwd_plain(mask=None)
+        qt, kt, vt = (z.transpose(1, 2).contiguous().requires_grad_() for z in (q, k, v))
+        gt = g.transpose(1, 2).contiguous()
+        sdpa_mask = None if mask is None else mask[:, None, None, :]
+
+        def sdpa_fwd():
+            with torch.enable_grad():
+                return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=sdpa_mask)
+
+        def sdpa_fwd_bwd():
+            with torch.enable_grad():
+                return torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), gt)
+
+        compare("attention_bwd_f32", f"{label} f32",
+                lambda: ops.flash_mha_bwd(q, k, v, mask, o, lse, g), bwd_plain, faults,
+                (10 * key_work, 4 * (8 * b * t * h * d + b * h * t) + b * t,
+                 sum(n_keys) * t * h, PEAK_F32_FLOPS),
+                ("scaled_dot_product_attention f32 backward", sdpa_fwd_bwd, sdpa_fwd),
+                tols=(F32_REL_L2_TOL, F32_MAX_ABS_TOL))
+        if mask is not None:  # keys at padded positions get exactly zero dk and dv
+            _, dk, dv = ops.flash_mha_bwd(q, k, v, mask, o, lse, g)
+            if dk[~mask].any() or dv[~mask].any():
+                fail(f"{label}: K4-f32 wrote non-zero dk or dv at padded keys")
     if part == "f32":
         return cases
 
@@ -676,8 +786,11 @@ def kernel_phase(torch, ops, part: str | None = None, parent_front=None) -> dict
         case for s_ in PROMPT_SECONDS for case in encoder_units(encoder_samples(s_), 1)
         if case not in ENCODER_CASES) + encoder_units(
             max(encoder_samples(s_) for s_ in BATCH_PROMPT_SECONDS), len(BATCH_PROMPT_SECONDS))
+    # and (j)'s dump: the encoder's 12 units on a batch of 8 windows of 60 s
+    dump_cases = encoder_units(encoder_samples(DUMP_WINDOW_SECONDS, 16000), DUMP_BATCH)
     k1_cases = RESUNIT_CASES + ENCODER_CASES + (
-        SERVED_RESUNIT_CASES + ONE_ROW_RESUNIT_CASES + tokenize_cases if part is None else ())
+        SERVED_RESUNIT_CASES + ONE_ROW_RESUNIT_CASES + tokenize_cases + dump_cases
+        if part is None else ())
     for label, b, t, c, d in k1_cases if part in (None, "codec") else ():
         x = normal(b, t, c).to(bf16)
         p = resunit_params(c)
@@ -779,12 +892,15 @@ def kernel_phase(torch, ops, part: str | None = None, parent_front=None) -> dict
                 ("scaled_dot_product_attention", lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, attn_mask=sdpa_mask)))
     # K3 at HuBERT-large's layers (H16 D64): one 10 s prompt's 500 frames
-    # unmasked, and path (g)'s batch of 4 prompts of 3-10 s on a 500-frame
-    # canvas with the key mask; the library call as above
-    hubert_k3 = (("hubert B1 T500 H16 D64", 1, None),
-                 ("hubert B4 T500 H16 D64 mask", 4, (150, 275, 400, 500)))
-    for label, b, lens in hubert_k3 if part is None else ():
-        t, h, d = 500, 16, 64
+    # unmasked, path (g)'s batch of 4 prompts of 3-10 s on a 500-frame
+    # canvas with the key mask, and (j)'s dump batch of 8 windows of 60 s
+    # (3000 frames) with a ragged key mask; the library call as above
+    hubert_k3 = (("hubert B1 T500 H16 D64", 1, 500, None),
+                 ("hubert B4 T500 H16 D64 mask", 4, 500, (150, 275, 400, 500)),
+                 ("hubert dump B8 T3000 H16 D64 mask", DUMP_BATCH, 3000,
+                  (3000, 3000, 2750, 2999, 1800, 3000, 1234, 2500)))
+    for label, b, t, lens in hubert_k3 if part is None else ():
+        h, d = 16, 64
         q, k, v = (normal(b, t, h, d).to(bf16) for _ in range(3))
         pos = torch.arange(t, device=dev)[None]
         mask = None if lens is None else pos < torch.tensor(lens, device=dev)[:, None]
@@ -1340,11 +1456,30 @@ def write_s2a_shards(path: str) -> None:
     writer.close()
 
 
-def attention_gradient_check(torch, ops, model, loss, label: str) -> dict:
+def write_t2s_shards(path: str) -> None:
+    """T2S_TRAIN_ITEMS seeded items, more than length_bucketed's 2048-item
+    pool: semantic lengths U[21, 1249], text bytes 20-40 % of them."""
+    import numpy as np
+
+    from edm_tts_tpu_torch.data.token_shards import TokenShardWriter
+
+    rng = np.random.default_rng(SEED)
+    writer = TokenShardWriter(path, items_per_shard=512)
+    for i in range(T2S_TRAIN_ITEMS):
+        t = int(rng.integers(21, 1250))
+        n_text = max(1, int(t * rng.uniform(0.2, 0.4)))
+        writer.add(f"utt{i}", np.zeros((1, t), np.int16), rng.integers(0, 1024, t),
+                   text_bytes=rng.integers(0, 256, n_text).tolist())
+    writer.close()
+
+
+def attention_gradient_check(torch, ops, model, loss, label: str,
+                             tols=(TRAIN_GRAD_REL_L2_TOL, TRAIN_LOSS_REL_TOL)) -> dict:
     """``loss(model)``'s loss and flattened trainable gradient through K3+K4
-    against the same with the Conformer's attention replaced by the plain
-    version for one call (and with a planted K4 fault: dk scaled by
-    sqrt(D)); returns the launches of the kernel run."""
+    (bf16 or f32, as the model runs) against the same with the Conformer's
+    attention replaced by the plain version for one call (and with a planted
+    K4 fault: dk scaled by sqrt(D)), within ``tols`` (gradient relative l2,
+    loss relative difference); returns the launches of the kernel run."""
     import edm_tts_tpu_torch.models.conformer.conformer as conformer_mod
     import edm_tts_tpu_torch.ops.attention as attention_mod
     from edm_tts_tpu_torch.kernels import all_launches, launches, reset_launches
@@ -1373,7 +1508,7 @@ def attention_gradient_check(torch, ops, model, loss, label: str) -> dict:
         loss_p, grad_p = loss_and_grad()
     finally:
         conformer_mod.mha = true_mha
-    if launches["attention"] or launches["attention_bwd"]:
+    if any(all_launches().values()):
         fail(f"{label}: the plain-attention step launched kernels: {all_launches()}")
     true_bwd = attention_mod.flash_mha_bwd
 
@@ -1386,18 +1521,19 @@ def attention_gradient_check(torch, ops, model, loss, label: str) -> dict:
         _, grad_fault = loss_and_grad()
     finally:
         attention_mod.flash_mha_bwd = true_bwd
+    grad_tol, loss_tol = tols
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
     grad_rel = rel_l2(torch, grad_k, grad_p)
     fault_rel = rel_l2(torch, grad_fault, grad_p)
     del grad_k, grad_p, grad_fault
-    print(f"{label}, K3+K4 vs plain attention: loss {loss_k:.6f} vs {loss_p:.6f} (relative "
-          f"{loss_rel:.3g}, tol {TRAIN_LOSS_REL_TOL}), gradient relative l2 {grad_rel:.4g} (tol "
-          f"{TRAIN_GRAD_REL_L2_TOL}); planted K4 fault (dk scaled by sqrt(D)) {fault_rel:.4g}; "
+    print(f"{label}, K3+K4 vs plain attention: loss {loss_k:.8f} vs {loss_p:.8f} (relative "
+          f"{loss_rel:.3g}, tol {loss_tol}), gradient relative l2 {grad_rel:.4g} (tol "
+          f"{grad_tol}); planted K4 fault (dk scaled by sqrt(D)) {fault_rel:.4g}; "
           f"launches {counts}", flush=True)
-    if not (loss_rel <= TRAIN_LOSS_REL_TOL and grad_rel <= TRAIN_GRAD_REL_L2_TOL):
+    if not (loss_rel <= loss_tol and grad_rel <= grad_tol):
         fail(f"{label}: the gradient through the kernels differs from the plain attention: "
              f"loss {loss_rel}, gradient {grad_rel}")
-    if not fault_rel > TRAIN_GRAD_REL_L2_TOL:
+    if not fault_rel > grad_tol:
         fail(f"{label}: the gradient limit would let a wrong dk pass ({fault_rel})")
     return counts
 
@@ -1434,9 +1570,10 @@ def check_kernels(label: str, counts: dict, ran: tuple, idle: tuple) -> None:
 # decode is masked, so K2 is off; at f32 the codec runs the composition)
 BF16_KERNELS = ("resunit", "attention")
 F32_KERNELS = ("attention_f32",)
-NOT_BF16 = ("decoder_block", "attention_bwd", "attn_variants", "attention_f32", "int8_dense_f32")
+NOT_BF16 = ("decoder_block", "attention_bwd", "attn_variants", "attention_f32", "int8_dense_f32",
+            "attention_bwd_f32")
 NOT_F32 = ("resunit", "decoder_block", "attention", "attention_bwd", "int8_dense",
-           "attn_variants")
+           "attn_variants", "attention_bwd_f32")
 CLI_FRAMES = 200  # the length head is set to predict ~200 frames (4 s)
 CLI_LONG_TEXT = ("The first sentence of a long text. A second one follows it closely. "
                  "Then a third, which ends the paragraph. A fourth opens the next one.")
@@ -1798,24 +1935,14 @@ def t2s_training_path(torch, ops, dev, smi: str) -> dict:
 
     import numpy as np
 
-    from edm_tts_tpu_torch.data.token_shards import TokenShardWriter
     from edm_tts_tpu_torch.kernels import all_launches, reset_launches
     from edm_tts_tpu_torch.profile_synthesis import t2s_train_recipe
     from edm_tts_tpu_torch.train import run_t2s
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_t2s_")
     try:
-        # T2S_TRAIN_ITEMS items, more than length_bucketed's 2048-item pool:
-        # semantic lengths U[21, 1249], text bytes 20-40 % of them
-        rng = np.random.default_rng(SEED)
         shards = os.path.join(tmp, "shards")
-        writer = TokenShardWriter(shards, items_per_shard=512)
-        for i in range(T2S_TRAIN_ITEMS):
-            t = int(rng.integers(21, 1250))
-            n_text = max(1, int(t * rng.uniform(0.2, 0.4)))
-            writer.add(f"utt{i}", np.zeros((1, t), np.int16), rng.integers(0, 1024, t),
-                       text_bytes=rng.integers(0, 256, n_text).tolist())
-        writer.close()
+        write_t2s_shards(shards)
         raw = t2s_train_recipe(os.path.join(tmp, "out"), shards, SEED, TRAIN_STEPS)
         model = run_t2s.build_model(raw, dev)
         cfg = model.cfg
@@ -1889,6 +2016,343 @@ def t2s_training_path(torch, ops, dev, smi: str) -> dict:
         if len(canvases) < 2 or any(s[1] % 64 or (lp - 1) % 64 for s, lp in shapes):
             fail(f"t2s canvases {shapes}: want at least two lengths, multiples of 64 (+1)")
         return counts
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def f32_training_path(torch, ops, dev, smi: str) -> dict:
+    """(i): the s2a and t2s recipes at f32 (``bf16: false``) at full width.
+
+    One s2a micro-batch (B8 x 768) through K3-f32 + K4-f32 against the plain
+    f32 attention, and under the remat policies "mha" (K3-f32's outputs kept:
+    no extra launch) and "full"; then TRAIN_F32_STEPS steps of the s2a
+    recipe (B32 x 768 in 4 micro-batches) with ``watch: all`` and the
+    tracker of TRACKER_SPEC, and TRAIN_F32_STEPS steps of the t2s recipe.
+    Returns the launches of the two runs."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+
+    from edm_tts_tpu_torch.kernels import all_launches, reset_launches
+    from edm_tts_tpu_torch.profile_synthesis import s2a_train_recipe, t2s_train_recipe
+    from edm_tts_tpu_torch.train import run_s2a, run_t2s
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_f32_")
+    try:
+        shards = os.path.join(tmp, "shards")
+        write_s2a_shards(shards)
+        raw = s2a_train_recipe(os.path.join(tmp, "out"), shards, SEED, TRAIN_F32_STEPS)
+        raw.update(bf16=False, watch="all", trackers=[TRACKER_SPEC])
+        n_micro = raw["micro_batches"]
+        micro = raw["per_device_train_batch_size"] // n_micro
+        model = run_s2a.build_model(raw, dev)
+        cfg = model.cfg
+        depth = cfg.encoder_num_layers
+        frames = int(raw["training_segment_length"] * cfg.codec.sample_rate / cfg.codec.hop_length)
+        batch = next(run_s2a.code_batch_iterator(shards, frames, micro, SEED))
+        ac, sem = (torch.as_tensor(batch[k], device=dev)
+                   for k in ("acoustic_tokens", "semantic_tokens"))
+        mask = ops.cosine_schedule_mask(torch.Generator(device=dev).manual_seed(SEED),
+                                        micro, frames, device=dev)
+
+        def loss(m):
+            return m.forward_train(ac, sem, mask_override=mask, train=False)["loss"]
+
+        counts = attention_gradient_check(
+            torch, ops, model, loss, f"train (i) one f32 micro-batch B{micro} x {frames}",
+            tols=(TRAIN_F32_GRAD_REL_L2_TOL, TRAIN_F32_LOSS_REL_TOL))
+        want = no_launches(attention_f32=depth, attention_bwd_f32=depth)
+        if counts != want:
+            fail(f"one f32 micro-batch launched {counts}, want {want}")
+
+        # the remat policies at f32: "mha" keeps K3-f32's outputs
+        def grad_under(policy):
+            model.cfg = dataclasses.replace(cfg, gradient_checkpointing=policy is not None,
+                                            remat_policy=policy or cfg.remat_policy)
+            model.zero_grad(set_to_none=True)
+            reset_launches()
+            with torch.enable_grad():
+                loss(model).backward()
+            torch.cuda.synchronize()
+            grad = torch.cat([p.grad.flatten() for p in model.parameters() if p.requires_grad])
+            model.zero_grad(set_to_none=True)
+            return grad, all_launches()
+
+        ref, _ = grad_under(None)
+        for policy, k3 in (("mha", depth), ("full", 2 * depth)):
+            grad, counts = grad_under(policy)
+            rel = rel_l2(torch, grad, ref)
+            want = no_launches(attention_f32=k3, attention_bwd_f32=depth)
+            print(f"train (i) remat {policy} at f32: gradient relative l2 to no remat {rel:.3g} "
+                  f"(tol {TRAIN_F32_GRAD_REL_L2_TOL}); launches {counts} expected {want}",
+                  flush=True)
+            if not rel <= TRAIN_F32_GRAD_REL_L2_TOL or counts != want:
+                fail(f"remat {policy} at f32: gradient {rel}, launches {counts} != {want}")
+        model.cfg = cfg
+        del model, ref, grad
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the main path: the s2a recipe at f32 with watch and a tracker
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        trainer = run_s2a.main_from_dict(raw, device=dev)
+        torch.cuda.synchronize()
+        counts_s2a = all_launches()
+        peak = torch.cuda.max_memory_allocated()
+        steps = [r for r in trainer.history if "train/loss" in r]
+        step_s = [1.0 / r["train/steps_per_sec"] for r in steps]
+        losses = [r["train/loss"] for r in steps]
+        med = statistics.median(step_s[1:])
+        want = no_launches(attention_f32=depth * n_micro * TRAIN_F32_STEPS,
+                           attention_bwd_f32=depth * n_micro * TRAIN_F32_STEPS)
+        tracker = trainer.metrics.trackers[0]
+        names = [n for n, _ in trainer.optimizer.named]
+        watched = [{k: v for k, v in scalars.items() if k.startswith("train/watch/")}
+                   for _, scalars in tracker.scalars]
+        print(f"train (i) s2a f32 {len(steps)} steps of B{raw['per_device_train_batch_size']} x "
+              f"{frames} ({n_micro} micro-batches): losses {[round(x, 5) for x in losses]} "
+              f"grad norms {[round(r['train/grad_norm'], 5) for r in steps]}; step seconds "
+              f"{[round(x, 4) for x in step_s]}: median {med:.4f} s after the first, "
+              f"{raw['per_device_train_batch_size'] * frames / med:.1f} frames per s; peak device "
+              f"memory {peak / 2 ** 30:.2f} GiB (max_memory_allocated); launches {counts_s2a} "
+              f"expected {want} ({smi})", flush=True)
+        print(f"train (i) s2a f32 watch: {len(watched[0]) if watched else 0} norms a step for "
+              f"{len(names)} trainable tensors reached the tracker in {len(tracker.scalars)} "
+              f"records; e.g. {dict(list(watched[0].items())[:2]) if watched else {}}", flush=True)
+        if len(steps) != TRAIN_F32_STEPS or not all(np.isfinite(losses)):
+            fail(f"f32 s2a training: {len(steps)} steps, losses {losses}")
+        if counts_s2a != want:
+            fail(f"f32 s2a training launches {counts_s2a} != expected {want}")
+        if (len(watched) != TRAIN_F32_STEPS or any(len(w) != 2 * len(names) for w in watched)
+                or not all(math.isfinite(v) for w in watched for v in w.values())
+                or any(f"train/watch/grad_norm/{n}" not in watched[0] for n in names)):
+            fail("f32 s2a training: the watch norms did not all reach the tracker, finite")
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the t2s recipe at f32
+        t2s_shards = os.path.join(tmp, "t2s_shards")
+        write_t2s_shards(t2s_shards)
+        raw = t2s_train_recipe(os.path.join(tmp, "t2s_out"), t2s_shards, SEED, TRAIN_F32_STEPS)
+        raw.update(bf16=False)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        trainer = run_t2s.main_from_dict(raw, device=dev)
+        torch.cuda.synchronize()
+        counts_t2s = all_launches()
+        depth = trainer.model.cfg.main_encoder_num_layers + \
+            trainer.model.cfg.length_predictor_num_layers
+        peak = torch.cuda.max_memory_allocated()
+        steps = [r for r in trainer.history if "train/loss" in r]
+        step_s = [1.0 / r["train/steps_per_sec"] for r in steps]
+        losses = [r["train/loss"] for r in steps]
+        want = no_launches(attention_f32=depth * TRAIN_F32_STEPS,
+                           attention_bwd_f32=depth * TRAIN_F32_STEPS)
+        print(f"train (i) t2s f32 {len(steps)} steps of B{raw['per_device_train_batch_size']}: "
+              f"losses {[round(x, 5) for x in losses]}; step seconds "
+              f"{[round(x, 4) for x in step_s]}; peak device memory {peak / 2 ** 30:.2f} GiB "
+              f"(max_memory_allocated); launches {counts_t2s} expected {want} ({smi})",
+              flush=True)
+        if len(steps) != TRAIN_F32_STEPS or not all(np.isfinite(losses)):
+            fail(f"f32 t2s training: {len(steps)} steps, losses {losses}")
+        if counts_t2s != want:
+            fail(f"f32 t2s training launches {counts_t2s} != expected {want}")
+        return {k: counts_s2a[k] + counts_t2s[k] for k in counts_s2a}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def write_preprocess_data(root, encode_flac) -> None:
+    """(j)'s seeded audio under ``root``: LibriSpeech train-clean-100 (4
+    speakers x PREPROCESS_UTTERANCES / 4 utterances of U(3, 15) s, with
+    transcripts) and LibriLight small (two books of LIBRILIGHT_BOOK_SECONDS,
+    written with verbatim FLAC subframes, which encode fastest)."""
+    import numpy as np
+
+    from edm_tts_tpu_torch.profile_tokenization import prompt_wav
+
+    def pcm(seconds, seed):
+        return np.round(np.clip(prompt_wav(seconds, seed, 16000), -1, 1) * 32767).astype(np.int64)
+
+    rng = np.random.default_rng(SEED + 90)
+    per = PREPROCESS_UTTERANCES // 4
+    for spk in range(4):
+        folder = root / "LibriSpeech" / "train-clean-100" / str(100 + spk) / "7"
+        folder.mkdir(parents=True)
+        lines = []
+        for i in range(per):
+            uid = f"{100 + spk}-7-{i:04d}"
+            (folder / f"{uid}.flac").write_bytes(encode_flac(
+                pcm(float(rng.uniform(3.0, 15.0)), SEED + 100 + spk * per + i)[None], 16000))
+            lines.append(f"{uid} UTTERANCE {i} OF SPEAKER {spk}")
+        (folder / f"{100 + spk}-7.trans.txt").write_text("\n".join(lines) + "\n")
+    for book in range(2):
+        path = root / "small" / str(200 + book) / "book" / f"book{book}.flac"
+        path.parent.mkdir(parents=True)
+        path.write_bytes(encode_flac(pcm(LIBRILIGHT_BOOK_SECONDS, SEED + 150 + book)[None], 16000,
+                                     blocksize=4096, subframe_kind="verbatim"))
+
+
+def preprocessing_path(torch, dev, smi: str) -> dict:
+    """(j): offline preprocessing at full width. Writes (j)'s seeded audio,
+    a full-width f32 HuBERT-large as an HF directory and the default codec
+    (seeded as (c)'s) as a reference directory; runs ``python -m
+    edm_tts_tpu_torch.hubert_kmeans`` (layer 18, K 1024, its defaults) on
+    the LibriSpeech set into a new HuBERT directory, then ``python -m
+    edm_tts_tpu_torch.dump_tokens`` (bf16, B8 x 60 s windows) on the
+    LibriLight set with that codec and HuBERT; checks each CLI's kernel
+    launches and the shards, then reads the shards with
+    ``run_s2a.code_batch_iterator`` and takes one step of the s2a recipe
+    (B8 x 768, one micro-batch) on them, counted; last, the k-means fit
+    itself at the CLI's default size on seeded features. Returns the
+    launches of the two CLIs and of the step."""
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+
+    from edm_tts_tpu_torch.data.token_shards import iter_token_shards
+    from edm_tts_tpu_torch.kernels import all_launches, reset_launches
+    from edm_tts_tpu_torch.ops.kmeans import kmeans
+    from edm_tts_tpu_torch.profile_synthesis import s2a_train_recipe
+    from edm_tts_tpu_torch.profile_tokenization import full_width_codec, full_width_semantic
+    from edm_tts_tpu_torch.train import run_s2a
+    from edm_tts_tpu_torch.utils import hub
+
+    root = Path(__file__).resolve().parent
+    sys.path.insert(0, str(root / "tests"))
+    from flac_encoder import encode_flac  # a lossless FLAC writer (numpy only)
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_preprocess_"))
+    try:
+        t0 = time.perf_counter()
+        data = tmp / "data"
+        write_preprocess_data(data, encode_flac)
+        semantic = full_width_semantic(dev, SEED + 91, dtype=torch.float32)
+        hub.save_hubert_hf(str(tmp / "hubert_hf"), semantic, centroids="centroids.npy")
+        depth, hidden = semantic.output_layer, semantic.config.hidden_size
+        codec = full_width_codec(dev, SEED, dtype=torch.float32)
+        hub.save_reference(str(tmp / "codec"), codec)
+        levels, codes = codec.config.n_codebooks, codec.config.codebook_size
+        del semantic, codec
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"preprocess (j): {PREPROCESS_UTTERANCES} LibriSpeech utterances, two "
+              f"{LIBRILIGHT_BOOK_SECONDS:.0f} s LibriLight books and the model directories "
+              f"written in {time.perf_counter() - t0:.2f} s", flush=True)
+
+        def cli(module, *args) -> tuple[dict, str, float]:
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m", f"edm_tts_tpu_torch.{module}", *args],
+                                  cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True, timeout=CLI_TIMEOUT_S)
+            wall = time.perf_counter() - t0
+            tail = "\n".join(line for line in proc.stdout.splitlines()
+                             if not line.startswith("kernel launches"))[-3000:]
+            print(f"preprocess (j) {module}: exit {proc.returncode} in {wall:.2f} s; output:\n"
+                  f"{tail}", flush=True)
+            if proc.returncode != 0:
+                fail(f"{module}: exit code {proc.returncode}")
+            return launch_line(proc.stdout), proc.stdout, wall
+
+        # the codebook: HuBERT-large f32 to layer 18 over the LibriSpeech set
+        hubert_dir = tmp / "hubert"
+        counts_k, _, _ = cli("hubert_kmeans", "--data_dir", str(data), "--hubert_model",
+                             str(tmp / "hubert_hf"), "--output", str(hubert_dir))
+        want = no_launches(attention_f32=depth * PREPROCESS_UTTERANCES)
+        print(f"preprocess (j) hubert_kmeans: launches {counts_k} expected {want}", flush=True)
+        if counts_k != want:
+            fail(f"hubert_kmeans launches {counts_k} != expected {want}")
+        centers = np.load(hub.find_centroids(str(hubert_dir)))
+        if centers.shape != (1024, hidden) or not np.isfinite(centers).all():
+            fail(f"hubert_kmeans wrote centroids {centers.shape}, finite "
+                 f"{np.isfinite(centers).all()}")
+
+        # the dump: one batch of 8 windows of 60 s, bf16
+        shards = tmp / "shards"
+        counts_d, out, wall = cli("dump_tokens", "--dataset", "librilight", "--data_dir", str(data),
+                                  "--subset", "small", "--output_dir", str(shards),
+                                  "--codec_model", str(tmp / "codec"),
+                                  "--hubert_model", str(hubert_dir))
+        want = no_launches(resunit=12, attention=depth)
+        done = [line for line in out.splitlines() if " done: " in line][-1]
+        n_items, seconds = int(done.split("done: ")[1].split()[0]), float(
+            done.split(" in ")[1].rstrip("s"))
+        print(f"preprocess (j) dump_tokens: {n_items} items of {DUMP_WINDOW_SECONDS:.0f} s in "
+              f"{seconds:.2f} s of its loop ({n_items / seconds:.3f} items per s, "
+              f"{n_items * DUMP_WINDOW_SECONDS / seconds:.1f} audio s per s; {wall:.2f} s of "
+              f"process wall with start-up and model loads); launches {counts_d} expected "
+              f"{want} ({smi})", flush=True)
+        if counts_d != want:
+            fail(f"dump_tokens launches {counts_d} != expected {want}")
+        items = list(iter_token_shards(str(shards)))
+        frames = int(DUMP_WINDOW_SECONDS * 50)
+        bad = [it["id"] for it in items
+               if it["acoustic_tokens"].shape != (levels, frames)
+               or it["semantic_tokens"].shape != (frames,)
+               or not (0 <= it["acoustic_tokens"]).all() or not (it["acoustic_tokens"] < codes).all()
+               or not (0 <= it["semantic_tokens"]).all() or not (it["semantic_tokens"] < 1024).all()]
+        distinct = len(np.unique(np.concatenate([it["semantic_tokens"] for it in items])))
+        print(f"preprocess (j) shards: {len(items)} items, codes ({levels}, {frames}) and ({frames},) "
+              f"in range: {not bad}; {distinct} distinct semantic ids", flush=True)
+        if len(items) != DUMP_BATCH or bad:
+            fail(f"dump_tokens wrote {len(items)} items, malformed: {bad}")
+
+        # the trainers read the shards: one step of the s2a recipe on them
+        raw = s2a_train_recipe(str(tmp / "s2a_out"), str(shards), SEED, 1)
+        raw.update(per_device_train_batch_size=DUMP_BATCH, micro_batches=1)
+        segment = int(raw["training_segment_length"] * 50)
+        batch = next(run_s2a.code_batch_iterator(str(shards), segment, DUMP_BATCH, SEED))
+        if batch["acoustic_tokens"].shape != (DUMP_BATCH, levels, segment):
+            fail(f"code_batch_iterator on the dump: {batch['acoustic_tokens'].shape}")
+        reset_launches()
+        trainer = run_s2a.main_from_dict(raw, device=dev)
+        torch.cuda.synchronize()
+        counts_s = all_launches()
+        steps = [r for r in trainer.history if "train/loss" in r]
+        layers = trainer.model.cfg.encoder_num_layers
+        want = no_launches(attention=layers, attention_bwd=layers)
+        print(f"preprocess (j) one s2a step of B{DUMP_BATCH} x {segment} on the dumped shards: "
+              f"loss {[r['train/loss'] for r in steps]}; launches {counts_s} expected {want}",
+              flush=True)
+        if len(steps) != 1 or not math.isfinite(steps[0]["train/loss"]) or counts_s != want:
+            fail(f"the s2a step on the dump: {steps}, launches {counts_s}")
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the fit at the CLI's default size: 1024 x 1000 seeded f32 frames
+        # of D 1024 around 1024 seeded centers
+        gen = torch.Generator(device=dev).manual_seed(SEED + 92)
+        k, dim = KMEANS_K, KMEANS_DIM
+        x = torch.randn(k, dim, generator=gen, device=dev)[torch.randint(
+            k, (k * KMEANS_FRAMES_PER_CLUSTER,), generator=gen, device=dev)]
+        x.add_(torch.randn(x.shape, generator=gen, device=dev), alpha=0.7)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        history: list = []
+        fitted, inertia = kmeans(x, k, history=history)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        rises = [max((b - a) / a for a, b in zip(h, h[1:])) for h in history]
+        print(f"preprocess (j) kmeans fit at the CLI's default size: x {tuple(x.shape)} f32 "
+              f"({x.numel() * 4 / 2 ** 30:.2f} GiB), K {k}, niter {len(history[0])}, nredo "
+              f"{len(history)} in {fit_s:.2f} s "
+              f"({fit_s / sum(map(len, history)) * 1e3:.1f} ms per Lloyd iteration); inertia "
+              f"{float(inertia):.6g}; per run first -> last {[(h[0], h[-1]) for h in history]}; "
+              f"largest relative rise {max(rises):.3g} (tol {KMEANS_INERTIA_RISE_TOL}); peak "
+              f"device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB ({smi})",
+              flush=True)
+        if not (max(rises) <= KMEANS_INERTIA_RISE_TOL and torch.isfinite(fitted).all()
+                and len(history) == 5):
+            fail(f"kmeans: inertia rose by {max(rises)} or the centers are not finite")
+        del x, fitted
+        torch.cuda.empty_cache()
+        return {name: counts_k[name] + counts_d[name] + counts_s[name] for name in KERNELS}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2070,7 +2534,7 @@ def main() -> int:
                       help="only K1's one-request cases and K2's cases of the kernel phase; "
                            "exit 3 when one is outside its limits")
     mode.add_argument("--f32-kernels", action="store_true",
-                      help="only the f32 K3 and K5 cases of the kernel phase; exit 3 when "
+                      help="only the f32 K3, K4 and K5 cases of the kernel phase; exit 3 when "
                            "one is outside its limits")
     parser.add_argument("--parent", default=None, metavar="DIR",
                         help="another checkout of this repository whose K2 front to time "
@@ -2274,8 +2738,16 @@ def main() -> int:
     # 11. (f) the attention-variant ablation through the profiling script
     counts_f, _ = ablation_path(torch, smi)
 
+    # 12. (i) f32 training: the s2a and t2s recipes with bf16: false
+    counts_i = f32_training_path(torch, ops, dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 13. (j) offline preprocessing: hubert_kmeans, dump_tokens, a step on the shards
+    counts_j = preprocessing_path(torch, dev, smi)
+
     by_path = {"a": counts_a, "b": counts_b, "c": counts_c, "g": counts_g, "h": counts_h,
-               "d": counts_d, "e": counts_e, "f": counts_f}
+               "d": counts_d, "e": counts_e, "f": counts_f, "i": counts_i, "j": counts_j}
     record = {"kernels": []}
     for name in KERNELS:
         cs = cases[name]
@@ -2285,9 +2757,9 @@ def main() -> int:
             name=name, route="cuda", **KERNELS[name],
             # the path the kernel runs on: K2 is off on the served masked
             # decode, K4 runs on the training paths only, K6 on the ablation,
-            # the f32 kernels on (h)'s f32 engine
-            launches=next((c[name] for c in (counts_c, counts_a, counts_d, counts_f, counts_h)
-                           if c[name]), 0),
+            # the f32 K3/K5 on (h)'s f32 engine, the f32 K4 on (i)
+            launches=next((c[name] for c in (counts_c, counts_a, counts_d, counts_f, counts_h,
+                                             counts_i) if c[name]), 0),
             launches_by_path={p: c[name] for p, c in by_path.items()},
             max_abs_err=max(c["max_abs_err"] for c in cs),
             rel_l2=max(c["rel_l2"] for c in cs),

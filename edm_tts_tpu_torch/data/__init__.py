@@ -1,1 +1,2 @@
-"""Host-side training data of the port: token shards, crops, collators."""
+"""Host-side data of the port: manifests, audio files, the native prefetcher,
+token shards, crops and collators."""

@@ -1,7 +1,8 @@
 """Batch collators (copies of ``collate_s2a``, ``t2s_filter``,
-``collate_t2s`` and ``length_bucketed`` in edm_tts_tpu/data/collators.py,
-whose module imports the t2s config and with it jax; pinned equal by
-tests/test_torch_train_data.py and tests/test_torch_t2s_train.py)."""
+``collate_t2s``, ``length_bucketed`` and ``collate_dump_batch`` in
+edm_tts_tpu/data/collators.py, whose module imports the t2s config and with
+it jax; pinned equal by tests/test_torch_train_data.py,
+tests/test_torch_t2s_train.py and tests/test_torch_preprocess.py)."""
 
 from __future__ import annotations
 
@@ -117,3 +118,53 @@ def length_bucketed(
     while len(pool) >= batch_size:
         yield pool[:batch_size]
         pool = pool[batch_size:]
+
+
+def collate_dump_batch(
+    windows: Sequence[dict], tokenizer, target_sr: int = 16000
+) -> dict:
+    """The dump_tokens collator (reference dump_tokens.py:93-134): load the
+    audio windows, apply the alignment pad hack, volume-normalize a copy for
+    the codec, build attention masks for HuBERT, record code lengths."""
+    from edm_tts_tpu_torch.data.pipeline import load_audio_segments
+    from edm_tts_tpu_torch.ops.loudness import normalize_loudness
+
+    audios, ids = [], []
+    for w in windows:
+        segs = list(load_audio_segments(w, target_sr, None))
+        audios.append(segs[0]["audio"])
+        ids.append(w["id"])
+    lengths = np.array([len(a) for a in audios])
+    padded = [tokenizer.pad(a[None])[0] for a in audios]
+    padded_lengths = np.array([len(a) for a in padded])
+    max_len = int(padded_lengths.max())
+    batch = np.zeros((len(padded), max_len), np.float32)
+    mask = np.zeros((len(padded), max_len), np.int32)
+    for i, a in enumerate(padded):
+        batch[i, : len(a)] = a
+        mask[i, : len(a)] = 1
+    normalized = np.stack(
+        [
+            np.pad(
+                normalize_loudness(a[None], target_sr, -16.0)[0][0],
+                (0, max_len - len(a)),
+            )
+            for a in padded
+        ]
+    )
+    code_lengths = tokenizer.get_code_lengths(padded_lengths)
+    return {
+        "ids": ids,
+        "normalized_audio": normalized,
+        "padded_audio": batch,
+        "attention_mask": mask,
+        "code_lengths": code_lengths,
+        "transcriptions": [w.get("transcription") for w in windows],
+        "transcription_bytes": [w.get("transcription_bytes") for w in windows],
+        "no_punc_transcriptions": [
+            w.get("no_punc_transcription") for w in windows
+        ],
+        "no_punc_transcription_bytes": [
+            w.get("no_punc_transcription_bytes") for w in windows
+        ],
+    }

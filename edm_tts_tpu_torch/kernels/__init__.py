@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels: build, bindings and launch counters.
 
 ``launches`` counts, per kernel, how many times its wrapper launched it on
-the card, and ``f32_launches`` the same for K3's and K5's f32 kernels
+the card, and ``f32_launches`` the same for K3's, K4's and K5's f32 kernels
 (``all_launches`` joins the two); ``int8_dense_shapes`` counts K5's
 launches per ``(M, K, N)`` and ``resunit_shapes`` K1's per ``(B, T, C,
 dilation)``. They are the port's
@@ -20,9 +20,9 @@ import torch
 
 KERNELS = ("resunit", "decoder_block", "attention", "attention_bwd", "int8_dense",
            "attn_variants")
-# K3's and K5's f32 kernels, counted in ``f32_launches`` so that ``launches``
-# keeps one entry per TPU kernel
-F32_KERNELS = ("attention_f32", "int8_dense_f32")
+# K3's, K4's and K5's f32 kernels, counted in ``f32_launches`` so that
+# ``launches`` keeps one entry per TPU kernel
+F32_KERNELS = ("attention_f32", "attention_bwd_f32", "int8_dense_f32")
 # streaming multiprocessors of an H100 SXM (what the wrappers' tile choices
 # assume when they are not told the card's count)
 H100_SMS = 132

@@ -1,5 +1,5 @@
 """Multi-head attention: kernels K3 (csrc/attention.cu) and K4
-(csrc/attention_bwd.cu), their plain versions and the autograd Function
+(csrc/attention_bwd.cu) with their f32 kernels, their plain versions and the autograd Function
 that joins them.
 
 Port of edm_tts_tpu/ops/attention.py (``mha``, ``mha_reference``) and
@@ -22,11 +22,12 @@ scale the scores by the true D and slice the outputs (``padded_depth``,
 K3's query tile (64 or 128 rows per block) is ``attention_query_tile``,
 or the caller's ``block_q``.
 
-f32 q, k, v on the card go to K3's f32 kernel (csrc/attention_f32.cu: f32
-products on the FMA units, f32 output, as the Pallas kernel keeps the
-input dtype); it takes D % 4 == 0 (the wrapper zero-pads other D) and has
-no backward: ``mha`` raises when autograd needs a gradient through f32
-attention on the card.
+f32 q, k, v on the card go to K3's and K4's f32 kernels
+(csrc/attention_f32.cu, csrc/attention_bwd_f32.cu: f32 products on the FMA
+units, f32 outputs, as the Pallas kernels keep the input dtype); they take
+D % 4 == 0 (the wrappers zero-pad other D). ``FlashMHA`` joins them as it
+joins the bf16 pair, so f32 training differentiates f32 attention on the
+card as the JAX trainers do with ``bf16: false``.
 """
 
 from __future__ import annotations
@@ -239,15 +240,17 @@ def _flash_mha_f32(q, k, v, mask, return_lse: bool):
 def flash_mha_bwd(q, k, v, mask, o, lse, g):
     """``(dq, dk, dv)`` through K4 on the card, the plain version on the CPU.
 
-    On CUDA: q, k, v, o and ``g`` (dO) contiguous bf16 ``(B, T, H, D)``,
-    ``lse`` f32 ``(B*H, T_q)`` from ``flash_mha(..., return_lse=True)``.
-    ``delta = rowsum(dO * O)`` is one torch reduction here, outside the
-    kernel, as the JAX package computes it in XLA. K4 takes lse and delta
-    with rows padded to a multiple of 4 (each 64-query box it copies must
-    start on 16 bytes).
+    On CUDA: q, k, v, o and ``g`` (dO) contiguous bf16 or f32 (K4's f32
+    kernel, f32 gradients) ``(B, T, H, D)``, ``lse`` f32 ``(B*H, T_q)``
+    from ``flash_mha(..., return_lse=True)``. ``delta = rowsum(dO * O)`` is
+    one torch reduction here, outside the kernel, as the JAX package
+    computes it in XLA. The bf16 K4 takes lse and delta with rows padded to
+    a multiple of 4 (each 64-query box it copies must start on 16 bytes).
     """
     if not q.is_cuda:
         return flash_mha_bwd_reference(q, k, v, mask, o, lse, g)
+    if q.dtype == torch.float32:
+        return _flash_mha_bwd_f32(q, k, v, mask, o, lse, g)
     b, tq, h, d = q.shape
     tk = k.shape[1]
     _check_qkv("flash_mha_bwd", q, k, v, o, g)
@@ -272,6 +275,37 @@ def flash_mha_bwd(q, k, v, mask, o, lse, g):
     return dq, dk, dv
 
 
+def _flash_mha_bwd_f32(q, k, v, mask, o, lse, g):
+    """K4's f32 kernel: q, k, v, o, dO contiguous f32 ``(B, T, H, D)``, D <= 64."""
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    for t in (q, k, v, o, g):
+        if t.dtype != torch.float32 or not t.is_contiguous() or t.device != q.device:
+            raise ValueError(f"flash_mha_bwd: q, k, v, o and dO must be contiguous f32 on "
+                             f"{q.device}")
+    if (k.shape != (b, tk, h, d) or v.shape != k.shape or d > 64 or o.shape != q.shape
+            or g.shape != q.shape):
+        raise ValueError(f"flash_mha_bwd: shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)} (need matching B, H, D <= 64)")
+    if lse.shape != (b * h, tq) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError(f"flash_mha_bwd: lse must be contiguous f32 ({b * h}, {tq})")
+    mask, mask_ptr = _mask_ptr("flash_mha_bwd", mask, b, tk, q.device)
+    delta = (g * o).sum(-1).transpose(1, 2).contiguous()  # (B, H, T_q)
+    dp = -(-d // 4) * 4
+    q, k, v, g = (_aligned(pad_depth(x, dp)) for x in (q, k, v, g))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    err = library().edm_attention_bwd_f32(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), mask_ptr, lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b, tq, tk, h, dp, d ** -0.5, torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    check_launch(err, "flash_mha_bwd")
+    f32_launches["attention_bwd_f32"] += 1
+    if dp != d:
+        dq, dk, dv = (x[..., :d].contiguous() for x in (dq, dk, dv))
+    return dq, dk, dv
+
+
 @torch.library.custom_op("edm_tts::flash_mha_lse", mutates_args=())
 def flash_mha_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   mask: Optional[torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor]:
@@ -283,7 +317,8 @@ def flash_mha_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 class FlashMHA(torch.autograd.Function):
-    """K3 with the LSE forward, K4 backward (``flash_mha_diff``)."""
+    """K3 with the LSE forward, K4 backward (``flash_mha_diff``), at bf16 or
+    f32."""
 
     @staticmethod
     def forward(ctx, q, k, v, mask):
@@ -304,8 +339,9 @@ def mha(
 ) -> torch.Tensor:
     """The Conformer's attention (ops/attention.py::mha in the JAX package).
 
-    On the card: the kernels (K3 alone when no gradient is needed, else
-    ``FlashMHA``: K3 with the LSE and K4 in the backward); on the CPU:
+    On the card: the kernels of q's dtype, bf16 or f32 (K3 alone when no
+    gradient is needed, else ``FlashMHA``: K3 with the LSE and K4 in the
+    backward); on the CPU:
     ``mha_reference``, which autograd differentiates. ``implementation`` is
     the config field the JAX package reads; every value other than
     ``"auto"`` and ``"pallas"`` raises on the card, so no setting moves the
@@ -322,8 +358,5 @@ def mha(
         raise ValueError("mha: implementation 'xla' (the plain attention) is not run on the "
                          "card; use 'auto' or 'pallas'")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        if q.dtype == torch.float32:
-            raise RuntimeError("mha: f32 attention on the card is inference-only (K3's f32 "
-                               "kernel has no backward); call it under torch.no_grad()")
         return FlashMHA.apply(q, k, v, mask)
     return flash_mha(q, k, v, mask=mask)

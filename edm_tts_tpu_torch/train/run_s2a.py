@@ -8,8 +8,10 @@ The same YAML as the JAX entry point: the base ``S2AConfig`` overridden by
 mapped to the flat fields), token shards cropped to
 ``training_segment_length`` seconds, the optimizer and loop settings of
 ``TrainingArguments``, ``bf16`` (the forward under bf16 autocast, f32
-weights and optimizer state), optional held-out evaluation, auto-resume,
-and an exported model directory at the end (``<output_dir>/export``).
+weights and optimizer state; with ``bf16: false`` all in f32, TF32 off on
+the card, attention through K3's and K4's f32 kernels), optional held-out
+evaluation, auto-resume, and an exported model directory at the end
+(``<output_dir>/export``).
 
 Weights: a seeded random init (``seed``), with the frozen codec loaded from
 ``acoustic_model_path`` and the whole model from ``warm_start_model`` when
@@ -19,6 +21,7 @@ they are given (directories written by ``train.export``).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import logging
@@ -34,6 +37,7 @@ from edm_tts_tpu_torch.data.collators import collate_s2a
 from edm_tts_tpu_torch.data.pipeline import crop_code_example, shuffle_buffer
 from edm_tts_tpu_torch.data.token_shards import iter_reference_pt_shards, iter_token_shards
 from edm_tts_tpu_torch.models.s2a import InjectionConformer, S2AConfig
+from edm_tts_tpu_torch.ops.precision import exact_f32
 from edm_tts_tpu_torch.train.export import load_codec, load_state, save_s2a
 from edm_tts_tpu_torch.train.optim import freeze_submodule
 from edm_tts_tpu_torch.train.trainer import Trainer, TrainingArguments
@@ -117,15 +121,25 @@ def build_model(raw: dict, device) -> InjectionConformer:
     return model
 
 
+def precision(bf16: bool, device):
+    """The scope a training run goes through: at f32 on the card, TF32 off
+    for the linears and cuDNN's convolutions (``exact_f32``), as the JAX
+    package's f32 computes in full f32; otherwise nothing."""
+    return exact_f32() if not bf16 and device.type == "cuda" else contextlib.nullcontext()
+
+
 def s2a_loss(model: InjectionConformer, *, bf16: bool):
     """``(forward(batch, generator, train) -> outputs, loss_fn)`` for the
-    Trainer: the training forward, under bf16 autocast when ``bf16``."""
+    Trainer: the training forward, under bf16 autocast when ``bf16``. A
+    batch may carry its own bool ``"mask"`` (the masked positions) in place
+    of the generator's draw, as the parity tests give both packages one."""
     device_type = next(model.parameters()).device.type
 
     def forward(batch, generator, train):
         with torch.autocast(device_type, dtype=torch.bfloat16, enabled=bf16):
             return model.forward_train(batch["acoustic_tokens"], batch["semantic_tokens"],
-                                       generator=generator, train=train)
+                                       generator=generator, train=train,
+                                       mask_override=batch.get("mask"))
 
     def loss_fn(batch, generator):
         out = forward(batch, generator, True)
@@ -171,7 +185,8 @@ def main_from_dict(raw: dict, *, device="cuda") -> Trainer | None:
             return {"loss": forward(batch, gen, False)["loss"]}
 
     trainer = Trainer(args, model, loss_fn, eval_fn=eval_fn, device=device)
-    trainer.train(train_iter, eval_iter)
+    with precision(bf16, device):
+        trainer.train(train_iter, eval_iter)
     export_dir = os.path.join(args.output_dir, "export")
     t0 = time.perf_counter()
     save_s2a(export_dir, model)

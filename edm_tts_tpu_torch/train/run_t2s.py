@@ -12,7 +12,8 @@ length-bucketed batches and collated into the joint ``[TEXT] bytes [SEP]
 optimizer and loop settings of ``TrainingArguments`` with the JAX entry
 point's defaults (lr 2.5e-4, 4000 warmup and 300k steps, betas (0.8,
 0.99), clip 0.5); ``bf16`` (the forward under bf16 autocast, f32 weights
-and optimizer state); ``preprocessing_only``; optional held-out
+and optimizer state; with ``bf16: false`` all in f32, as ``run_s2a``
+runs it); ``preprocessing_only``; optional held-out
 evaluation with a fixed mask draw; auto-resume; and an exported model
 directory at the end (``<output_dir>/export``).
 
@@ -38,7 +39,7 @@ from edm_tts_tpu_torch.data.pipeline import shuffle_buffer
 from edm_tts_tpu_torch.data.token_shards import iter_reference_pt_shards, iter_token_shards
 from edm_tts_tpu_torch.models.t2s import T2SConfig, TextToSemantic
 from edm_tts_tpu_torch.train.export import save_t2s
-from edm_tts_tpu_torch.train.run_s2a import training_arguments
+from edm_tts_tpu_torch.train.run_s2a import precision, training_arguments
 from edm_tts_tpu_torch.train.trainer import Trainer
 from edm_tts_tpu_torch.utils.config import load_yaml
 from edm_tts_tpu_torch.utils.logging import setup_logging
@@ -74,13 +75,14 @@ def build_model(raw: dict, device) -> TextToSemantic:
 
 def t2s_loss(model: TextToSemantic, *, bf16: bool):
     """``(forward(batch, generator, train) -> outputs, loss_fn)`` for the
-    Trainer: the training forward, under bf16 autocast when ``bf16``."""
+    Trainer: the training forward, under bf16 autocast when ``bf16``. A
+    batch may carry its own bool ``"mask"``, as ``run_s2a.s2a_loss``'s."""
     device_type = next(model.parameters()).device.type
 
     def forward(batch, generator, train):
         with torch.autocast(device_type, dtype=torch.bfloat16, enabled=bf16):
             return model.forward_train(*(batch[k] for k in BATCH_KEYS), generator=generator,
-                                       train=train)
+                                       train=train, mask_override=batch.get("mask"))
 
     def loss_fn(batch, generator):
         out = forward(batch, generator, True)
@@ -103,7 +105,8 @@ def main_from_dict(raw: dict, *, device="cuda") -> Trainer | None:
         print("preprocessing ok;", {k: v.shape for k, v in b.items()})
         return None
     model = build_model(raw, device)
-    forward, loss_fn = t2s_loss(model, bf16=bool(raw.get("bf16", True)))
+    bf16 = bool(raw.get("bf16", True))
+    forward, loss_fn = t2s_loss(model, bf16=bf16)
 
     # held-out evaluation: fixed batches, the same mask draw for every batch
     eval_iter, eval_fn = None, None
@@ -120,7 +123,8 @@ def main_from_dict(raw: dict, *, device="cuda") -> Trainer | None:
             return {k: out[k] for k in ("loss", "ce_loss", "length_loss")}
 
     trainer = Trainer(args, model, loss_fn, eval_fn=eval_fn, device=device)
-    trainer.train(train_iter, eval_iter)
+    with precision(bf16, device):
+        trainer.train(train_iter, eval_iter)
     export_dir = os.path.join(args.output_dir, "export")
     t0 = time.perf_counter()
     save_t2s(export_dir, model)

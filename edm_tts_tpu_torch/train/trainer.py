@@ -8,14 +8,18 @@ logging, held-out evaluation, a wall-clock limit, checkpoints every
 checkpoint on SIGTERM. Weights, gradients and the Adam moments are f32;
 the loss function chooses the compute dtype (``run_s2a`` runs the forward
 under bf16 autocast, as the JAX package builds its modules with
-``dtype=bf16``).
+``dtype=bf16``, or in f32 with ``bf16: false``). ``watch`` adds per-tensor
+norms to the logged metrics (``train/watch.py``), ``trackers`` names remote
+trackers that receive every logged record (``utils/logging.py``), and each
+step runs inside a ``step_annotation`` range, as the JAX loop's
+``StepTraceAnnotation``, so a ``utils.profiling.trace`` names its steps.
 
 Randomness: each step's generator is seeded from ``(seed, step)`` (and
 each micro-batch's from that and its index), as the JAX loop folds the step
 into its key, so a resumed run draws what an unbroken one would.
 
-One device only: ``n_fsdp``, ``n_model`` and ``n_seq`` above 1, and the
-``watch`` and ``trackers`` options, raise ``NotImplementedError``.
+One device only: ``n_fsdp``, ``n_model`` and ``n_seq`` above 1 raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -30,7 +34,9 @@ from torch import nn
 from edm_tts_tpu_torch.train.checkpoint import CheckpointManager, detect_last_checkpoint
 from edm_tts_tpu_torch.train.optim import AdamW, warmup_cosine_schedule
 from edm_tts_tpu_torch.train.preemption import PreemptionGuard
+from edm_tts_tpu_torch.train.watch import watch_metrics
 from edm_tts_tpu_torch.utils.logging import MetricLogger, logger
+from edm_tts_tpu_torch.utils.profiling import step_annotation
 
 _MIX = 0x9E3779B97F4A7C15  # 2^64 / golden ratio
 
@@ -105,8 +111,6 @@ class Trainer:
             if getattr(args, name) > 1:
                 raise NotImplementedError(f"{name}={getattr(args, name)}: the port trains "
                                           "on one device (multi-device is not ported)")
-        if args.watch or args.trackers:
-            raise NotImplementedError("watch and trackers are not ported")
         if args.per_device_train_batch_size % max(1, args.micro_batches):
             raise ValueError("per_device_train_batch_size must be a multiple of micro_batches")
         self.args = args
@@ -122,7 +126,7 @@ class Trainer:
         # the overwrite guard runs before anything is written to output_dir
         detect_last_checkpoint(args.output_dir, args.overwrite_output_dir)
         self.ckpt = CheckpointManager(args.output_dir, args.save_total_limit)
-        self.metrics = MetricLogger(args.output_dir)
+        self.metrics = MetricLogger(args.output_dir, trackers=args.trackers)
         self.history: list[dict] = []  # every record logged, train and eval
         self.last_save: dict | None = None
 
@@ -151,6 +155,11 @@ class Trainer:
                 metrics["loss"] = loss.detach()
             else:
                 metrics = self._accumulate(batch, step_seed, n_micro)
+        if self.args.watch:  # the gradient before clipping, the parameters before the update
+            named = self.optimizer.named
+            metrics.update(watch_metrics(
+                self.args.watch, grads={n: p.grad for n, p in named if p.grad is not None},
+                params=dict(named)))
         metrics.update(self.optimizer.step(skip_nonfinite=self.args.skip_nonfinite_updates))
         return metrics
 
@@ -226,9 +235,13 @@ class Trainer:
         step = start_step
         for step in range(start_step, args.max_steps):
             batch = self._to_device(next(train_iter))
-            metrics = self.train_step(batch, step)
+            with step_annotation("train", step):
+                metrics = self.train_step(batch, step)
             if (step + 1) % args.logging_steps == 0:
-                metrics = {k: v.item() for k, v in metrics.items()}  # waits for the step
+                # one transfer for every scalar; it waits for the step
+                values = torch.stack([torch.as_tensor(v, dtype=torch.float32).to(self.device)
+                                      for v in metrics.values()]).tolist()
+                metrics = dict(zip(metrics, values))
                 dt = time.time() - last_log
                 last_log = time.time()
                 metrics["steps_per_sec"] = args.logging_steps / dt

@@ -168,17 +168,25 @@ def find_centroids(path: str) -> str:
                             "pass centroids=")
 
 
+def load_hubert(path: str, output_layer: int = 18, num_clusters: int = 1024, *,
+                device="cuda", dtype=torch.float32) -> SemanticTokenizerHubert:
+    """HuBERT from a local HF directory, to ``output_layer``, with
+    ``num_clusters`` zero centroids (``hubert_kmeans`` fits them)."""
+    sem = SemanticTokenizerHubert(hubert_config_from_hf(read_config(path)), output_layer,
+                                  num_clusters, device=device, dtype=dtype)
+    sd = {k.removeprefix("hubert."): v for k, v in load_weights(path).items()}
+    load_hf_state_dict(sem.hubert, sd)
+    return sem.eval()
+
+
 def load_semantic_tokenizer(path: str, output_layer: int = 18, *, centroids: str | None = None,
                             device="cuda", dtype=torch.float32) -> SemanticTokenizerHubert:
     """HuBERT from a local HF directory, to ``output_layer``, with the
     k-means centroids of ``centroids`` (a file) or of the directory."""
     centers = load_centroids(centroids or find_centroids(path)).astype(np.float32)
-    sem = SemanticTokenizerHubert(hubert_config_from_hf(read_config(path)), output_layer,
-                                  centers.shape[0], device=device, dtype=dtype)
-    sd = {k.removeprefix("hubert."): v for k, v in load_weights(path).items()}
-    load_hf_state_dict(sem.hubert, sd)
+    sem = load_hubert(path, output_layer, centers.shape[0], device=device, dtype=dtype)
     sem.cluster_centers.copy_(torch.from_numpy(centers))
-    return sem.eval()
+    return sem
 
 
 def build_audio_tokenizer(codec_path: str, hubert_path: str, *, device="cuda",

@@ -1,4 +1,4 @@
-"""K3's and K5's f32 kernels against their plain f32 versions, on the card.
+"""K3's, K4's and K5's f32 kernels against their plain f32 versions, on the card.
 
 Marked ``gpu``; every test skips where there is no CUDA device. On the GPU
 machine (no jax there, so the suite's conftest cannot load):
@@ -8,7 +8,10 @@ machine (no jax there, so the suite's conftest cannot load):
 K3 at f32 (csrc/attention_f32.cu) at the shapes of the f32 path: HuBERT-large
 (H16 D64, B1 T150-500 and B4 with the key mask), the t2s canvas (H8 D24,
 masked, ragged B4) and the s2a (H16 D64 up to T1250), a batch row with no
-valid key, a depth that is not a multiple of 4, and its LSE. K5 at f32
+valid key, a depth that is not a multiple of 4, and its LSE. K4 at f32
+(csrc/attention_bwd_f32.cu) at the bf16 K4's cases (the s2a training
+micro-batch, a ragged batch, the masked t2s canvas) and through ``mha``
+under grad. K5 at f32
 (csrc/qdense_f32.cu) at the 31 shapes of profile_qdense (one request's 14
 and a served call's 17) and a ragged last row tile.
 
@@ -124,12 +127,70 @@ def test_attention_f32_row_without_valid_keys(dev):
     assert torch.allclose(lse.reshape(2, 4, 130)[1], torch.full((4, 130), float(130)).log().to(dev))
 
 
-def test_attention_f32_has_no_backward(dev):
-    q = torch.randn(1, 64, 4, 64, device=dev, requires_grad=True)
-    with pytest.raises(RuntimeError, match="inference-only"):
-        ops.mha(q, q.detach(), q.detach())
-    with torch.no_grad():
-        assert ops.mha(q, q, q).dtype == torch.float32
+ATTENTION_BWD_CASES = (
+    # (B, T, H, D, key lengths or None): the s2a training micro-batch, the
+    # ragged and the t2s canvas cases of the bf16 K4, D not a multiple of 4
+    (8, 768, 16, 64, None),
+    (4, 701, 8, 24, (701, 650, 512, 97)),
+    (4, 1382, 8, 24, (1382, 1210, 905, 488)),
+    (2, 77, 4, 20, (77, 3)),
+)
+
+
+@pytest.mark.parametrize("b,t,h,d,lens", ATTENTION_BWD_CASES)
+def test_attention_bwd_f32_matches_plain(dev, b, t, h, d, lens):
+    """K4 at f32 against ``flash_mha_bwd_reference`` on K3-f32's LSE; faults:
+    delta dropped, the mask ignored, the last query tile's dO dropped, an
+    operand rounded to TF32."""
+    g = torch.Generator(device=dev).manual_seed(t + d + 1)
+    q, k, v, do = (torch.randn(b, t, h, d, generator=g, device=dev) for _ in range(4))
+    mask = None
+    if lens is not None:
+        mask = torch.arange(t, device=dev)[None] < torch.tensor(lens, device=dev)[:, None]
+    o, lse = ops.flash_mha(q, k, v, mask=mask, return_lse=True)
+    reset_launches()
+    out = ops.flash_mha_bwd(q, k, v, mask, o, lse, do)
+    assert f32_launches["attention_bwd_f32"] == 1 and launches["attention_bwd"] == 0
+    lse_ref = ops.attention_lse_reference(q, k, mask=mask)
+
+    def plain(q=q, mask=mask, o=o, do=do):
+        return ops.flash_mha_bwd_reference(q, k, v, mask, o, lse_ref, do)
+
+    cut = do.clone()
+    cut[:, (t - 1) // 64 * 64:] = 0
+    faults = {"delta dropped": plain(o=torch.zeros_like(o)), "last tile's dO": plain(do=cut),
+              "tf32 q": plain(q=tf32(q))}
+    if mask is not None:
+        faults["mask ignored"] = plain(mask=None)
+    ref = plain()
+    for x, r in zip(out, ref):
+        _check(x, r)
+    for f, fault in faults.items():  # each fault moves some gradient out of the limit
+        assert max(_rel(x, r) for x, r in zip(fault, ref)) > REL_L2_TOL, f
+    if mask is not None:  # keys at padded positions get exactly zero dk and dv
+        assert not out[1][~mask].any() and not out[2][~mask].any()
+    again = ops.flash_mha_bwd(q, k, v, mask, o, lse, do)
+    assert all(torch.equal(x, y) for x, y in zip(again, out))  # no atomics
+
+
+def test_attention_f32_grad_through_mha(dev):
+    """``mha`` under grad at f32: K3-f32 with its LSE forward, K4-f32
+    backward, the gradients of autograd through the plain version; a batch
+    row without valid keys gets dq = dk = 0."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    q, k, v = (torch.randn(2, 130, 4, 64, generator=g, device=dev).requires_grad_()
+               for _ in range(3))
+    do = torch.randn(2, 130, 4, 64, generator=g, device=dev)
+    mask = torch.zeros(2, 130, dtype=torch.bool, device=dev)
+    mask[0, :70] = True
+    reset_launches()
+    grads = torch.autograd.grad(ops.mha(q, k, v, mask=mask), (q, k, v), do)
+    assert f32_launches["attention_f32"] == 1 and f32_launches["attention_bwd_f32"] == 1
+    assert launches["attention"] == 0 and launches["attention_bwd"] == 0
+    ref = torch.autograd.grad(ops.mha_reference(q, k, v, mask=mask), (q, k, v), do)
+    for x, r in zip(grads, ref):
+        _check(x, r)
+    assert not grads[0][1].any() and not grads[1][1].any()
 
 
 @pytest.mark.parametrize("label,m,k,n", INT8_CASES + SERVED_INT8_CASES + (("ragged", 67, 96, 256),))

@@ -194,9 +194,10 @@ def test_overwrite_guard_and_unported_options(tmp_path):
     (tmp_path / "stale.txt").write_text("a previous run")
     with pytest.raises(ValueError, match="not empty"):
         _trainer(model, tmp_path)
-    for kw in ({"n_fsdp": 2}, {"n_seq": 2}, {"watch": "gradients"}):
+    for kw in ({"n_fsdp": 2}, {"n_seq": 2}):
         with pytest.raises(NotImplementedError):
             _trainer(model, tmp_path / "x", **kw)
+    assert _trainer(model, tmp_path / "w", watch="gradients").args.watch == "gradients"
 
 
 def test_export_loads_back_and_seeds_a_recipe(setup, tmp_path):
