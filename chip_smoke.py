@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (edm_tts_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--parent DIR]
+    python3 chip_smoke.py [--parent DIR] [--parent-f32 DIR]
 
 Phases, each reported on its own line:
   1. environment: torch / CUDA versions and the card's name and power limit;
@@ -33,7 +33,8 @@ Phases, each reported on its own line:
      the f32 path's shapes (ATTENTION_F32_CASES; K5 at the 31 int8 cases
      with f32 activations), and K4's f32 kernel at the bf16 K4's cases,
      beside SDPA f32 (for K4 its f32 backward) and the f32 matmul on the
-     dequantized weight, bound at the 67 TFLOP/s f32 FMA peak, within
+     dequantized weight, bound at the split-TF32 rates (495/3 TFLOP/s for
+     K3 and K4, 495/2 for K5, whose int8 weight is exact in TF32), within
      2^-16 relative l2 and 2^-14 of the largest output; K1 and K3 also at
      path (j)'s dump shapes (the encoder's 12 units at B8 x 960160 samples,
      HuBERT at B8 T3000 with a ragged key mask);
@@ -168,6 +169,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 SEED = 0
 # Kernel against plain version: the relative l2 error ||out - ref|| / ||ref||
@@ -400,26 +402,47 @@ SOURCE_FAULTS.update({
         ("(mask != nullptr && !uniform) ? mask + (size_t)b * Tk : nullptr;", "nullptr;")]),
     "K3 f32 last partial key tile dropped": ("attention_f32.cu", [
         ("const int n = min(kKeys, Tk - t0);", "const int n = Tk - t0 < kKeys ? 0 : kKeys;")]),
-    # K5's f32 kernel: the scale, the last K step, the ragged rows
+    # K5's f32 kernel: the scale, the last K step, the ragged rows, the
+    # split (its x_lo product, its cluster sums), the widening and the
+    # swizzle of the widened weight that the warpgroup MMA reads
     "K5 f32 scale ignored": ("qdense_f32.cu", [
-        ("const float4 s0 = *reinterpret_cast<const float4*>(scale + n0 + tx * 4);",
-         "const float4 s0 = make_float4(1.f, 1.f, 1.f, 1.f);")]),
+        ("const float sc0 = scale[n], sc1 = scale[n + 1];", "const float sc0 = 1.0f, sc1 = 1.0f;")]),
     "K5 f32 last K step skipped": ("qdense_f32.cu", [
-        ("const int nk = K / kBK;", "const int nk = (K - 1) / kBK;")]),
+        ("const int nk_all = K / kF32QK", "const int nk_all = (K - 1) / kF32QK")]),
     "K5 f32 ragged last row tile not stored": ("qdense_f32.cu", [
-        ("if (m >= M) continue;", "if (m >= M / kBM * kBM) continue;")]),
+        ("if (m >= M) continue;", "if (m >= M / BM * BM) continue;")]),
+    "K5 f32 x_lo product dropped": ("qdense_f32.cu", [
+        ("WgmmaTF32<NW>::run(sum, lo[j], desc + 2 * j, 1);", "")]),
+    "K5 f32 split sums of the other blocks dropped": ("qdense_f32.cu", [
+        ("for (int r = 0; r < splits; ++r) {", "for (int r = 0; r < 1; ++r) {")]),
+    "K5 f32 int8 read as unsigned": ("qdense_f32.cu", [
+        ("r * kF32QBN) ^ 0x80808080u;", "r * kF32QBN);")]),
+    "K5 f32 widened weight stored unswizzled": ("qdense_f32.cu", [
+        ("((warp ^ (n & 7)) << 4)", "(warp << 4)")]),
     # K4's f32 kernel: delta left out of ds (both kernels), the mask ignored
-    # (both kernels), the dq kernel's last key tile skipped
+    # (both kernels), the dq kernel's last key tile left out, a term of the
+    # split products dropped, the accumulators' column order not matched
+    # (the design's stand-in for a quad shuffle: the B rows of P^T's products
+    # read in m16n8k8's own order), the streamed tiles' lo parts dropped by
+    # the block's split, a streamed tile read unswizzled
     "K4 f32 delta dropped": ("attention_bwd_f32.cu", [
-        ("p * (dp - dl[i]) * sc", "p * dp * sc"), ("p * (dp - del) * sc", "p * dp * sc")]),
+        ("pt[n][e] * (dst[n][e] - ((e & 1) ? dz.y : dz.x)) * scd", "pt[n][e] * dst[n][e] * scd"),
+        ("p * (dp[n][e] - dl[e >> 1]) * scd", "p * dp[n][e] * scd")]),
     "K4 f32 mask ignored": ("attention_bwd_f32.cu", [
-        ("const bool counts = live && (mask == nullptr || uniform || mask[(size_t)b * Tk + kj]);",
-         "const bool counts = live;"),
-        ("const unsigned char* mrow = (mask != nullptr && !uniform) ? mask + (size_t)b * Tk : nullptr;",
-         "const unsigned char* mrow = nullptr;")]),
+        ("scan_key_tiles<W::kWarps>(mask,", "scan_key_tiles<W::kWarps>(nullptr,")]),
     "K4 f32 last key tile skipped": ("attention_bwd_f32.cu", [
-        ("valid[j] = j < n && (mrow == nullptr || mrow[t0 + j]);",
-         "valid[j] = j < n && t0 + kTile < Tk && (mrow == nullptr || mrow[t0 + j]);")]),
+        ("    mm_pt<DP>(dqa, sa, smem + (ks - sbase),",
+         "    if (i + 1 < nlive) mm_pt<DP>(dqa, sa, smem + (ks - sbase),")]),
+    "K4 f32 lo·hi term dropped": ("attention_bwd_f32.cu", [
+        ("if (n < n_use) mma1688(c[n], al, bh[n][0], bh[n][1]);", ";")]),
+    "K4 f32 Pᵀ quad shuffle wrong": ("attention_bwd_f32.cu", [
+        ("8 * j + 2 * tg, 8 * n + g)", "8 * j + tg, 8 * n + g)"),
+        ("8 * j + 2 * tg + 1, 8 * n + g)", "8 * j + tg + 4, 8 * n + g)")]),
+    "K4 f32 streamed lo parts dropped": ("attention_bwd_f32.cu", [
+        ("*reinterpret_cast<uint4*>(lo + o) = l;",
+         "*reinterpret_cast<uint4*>(lo + o) = make_uint4(0, 0, 0, 0);")]),
+    "K4 f32 streamed tile read unswizzled": ("attention_bwd_f32.cu", [
+        ("((((c & 31) >> 2) ^ (r & 7)) << 4)", "(((c & 31) >> 2) << 4)")]),
 })
 # the --source-faults mode of each fault's source
 FAULT_MODES = {"conv_gemm.cuh": "--codec-kernels", "qdense.cu": "--int8-kernels",
@@ -440,14 +463,60 @@ def rel_l2(torch, out, ref) -> float:
     return ((out.float() - ref.float()).norm() / ref.float().norm()).item()
 
 
-def kernel_phase(torch, ops, part: str | None = None, parent_front=None) -> dict:
+def parent_f32_kernels(torch, checkout):
+    """K4-f32 and K5-f32 of another checkout, built from its
+    csrc/attention_bwd_f32.cu and csrc/qdense_f32.cu into the build
+    directory, with their wrappers' work as of the FFMA kernels (the parent of
+    the split-TF32 redesign): ``{"attention_bwd_f32": fn(q, k, v, mask, o,
+    lse, g), "int8_dense_f32": fn(x, q8, scale)}``, D % 4 == 0."""
+    import ctypes
+    import hashlib
+
+    from edm_tts_tpu_torch.kernels.build import BUILD_DIR, build_sources, check_launch
+
+    srcs = [checkout / "edm_tts_tpu_torch" / "csrc" / f for f in ("attention_bwd_f32.cu",
+                                                                  "qdense_f32.cu")]
+    digest = hashlib.sha256(b"".join(s.read_bytes() for s in srcs)).hexdigest()[:16]
+    lib = ctypes.CDLL(str(build_sources(srcs, BUILD_DIR / f"libparent_f32_{digest}.so")))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.edm_attention_bwd_f32.argtypes = [ptr] * 10 + [i32] * 5 + [ctypes.c_float, ptr]
+    lib.edm_int8_dense_f32.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
+    lib.edm_attention_bwd_f32.restype = lib.edm_int8_dense_f32.restype = ctypes.c_int
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def bwd(q, k, v, mask, o, lse, g):
+        b, tq, h, d = q.shape
+        delta = (g * o).sum(-1).transpose(1, 2).contiguous()
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        check_launch(lib.edm_attention_bwd_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            None if mask is None else mask.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, tq, k.shape[1], h, d, d ** -0.5,
+            stream()), "parent edm_attention_bwd_f32")
+        return dq, dk, dv
+
+    def dense(x, q8, scale):
+        out = torch.empty((x.shape[0], q8.shape[1]), dtype=torch.float32, device=x.device)
+        check_launch(lib.edm_int8_dense_f32(
+            x.data_ptr(), q8.data_ptr(), scale.data_ptr(), out.data_ptr(), x.shape[0],
+            q8.shape[0], q8.shape[1], stream()), "parent edm_int8_dense_f32")
+        return out
+
+    return {"attention_bwd_f32": bwd, "int8_dense_f32": dense}
+
+
+def kernel_phase(torch, ops, part: str | None = None, parent_front=None,
+                 parent_f32=None) -> dict:
     """Each kernel against its plain version at the slices' shapes; with
     ``part`` "attention" only K3 with its LSE, K4 and K6's ragged cases, with
     "int8" only K5's cases, with "codec" only K1's one-request cases and
     K2's, with "f32" only the f32 kernels' cases (what ``--source-faults``
     needs). ``parent_front``: another
     checkout's K2 front (profile_decoder_block.parent_front), timed beside
-    this one's.
+    this one's; ``parent_f32``: another checkout's K4-f32 and K5-f32
+    (parent_f32_kernels), timed beside these ("was_ms").
 
     Alphas are drawn U(0.5, 2), biases N(0, 0.5) and the int8 weights'
     column magnitudes U(0.5, 2), so that every term of the arithmetic moves
@@ -470,7 +539,8 @@ def kernel_phase(torch, ops, part: str | None = None, parent_front=None) -> dict
     from edm_tts_tpu_torch.profile_resunit import SERVED_CASES as SERVED_RESUNIT_CASES
     from edm_tts_tpu_torch.profile_resunit import encoder_units, resunit_work
     from edm_tts_tpu_torch.profile_tokenization import PROMPT_SECONDS, encoder_samples
-    from edm_tts_tpu_torch.utils.devtime import PEAK_F32_FLOPS, bound, median_ms
+    from edm_tts_tpu_torch.utils.devtime import (PEAK_2XTF32_FLOPS, PEAK_3XTF32_FLOPS,
+                                                  bound, median_ms)
 
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -508,12 +578,13 @@ def kernel_phase(torch, ops, part: str | None = None, parent_front=None) -> dict
         return x if isinstance(x, tuple) else (x,)
 
     def compare(name, label, kernel, plain, faults, work, library=None,
-                tols=(REL_L2_TOL, MAX_ABS_TOL)):
+                tols=(REL_L2_TOL, MAX_ABS_TOL), was=None):
         """``work``: (operations, bytes[, exponentials[, peak FLOP/s]]) the
-        function needs on these inputs (f32 kernels: the f32 FMA peak);
+        function needs on these inputs (f32 kernels: a split-TF32 rate);
         ``tols``: (relative l2, max abs share) limits;
         ``library``: (name, fn) of one PyTorch call computing it, or None,
-        or (name, fn, fn_subtracted): the time of the first less the second.
+        or (name, fn, fn_subtracted): the time of the first less the second;
+        ``was``: another checkout's kernel on the same inputs, timed beside.
         A function of several outputs (K3 with its LSE, K4) is held to the
         limits on each; a fault is rejected when any output leaves them."""
         rel_tol, abs_share = tols
@@ -536,13 +607,15 @@ def kernel_phase(torch, ops, part: str | None = None, parent_front=None) -> dict
             library_ms = median_ms(library[1])
             if len(library) == 3:
                 library_ms -= median_ms(library[2])
+        was_ms = None if was is None else median_ms(was)
         bound_ms, bound_by = bound(*work)
         print(f"kernel {name} {label}: rel_l2 {rel:.6g} (tol {rel_tol:.6g}) max_abs_err "
               f"{err:.6g} (tol {max_abs_tol:.4g}) planted faults rel_l2 "
               f"{ {f: round(r, 5) for f, r in fault_rel.items()} } "
               f"ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
               f"{'n/a' if library_ms is None else f'{library_ms:.4f} ({library[0]})'} "
-              f"bound_ms {bound_ms:.4f} ({bound_by})", flush=True)
+              f"bound_ms {bound_ms:.4f} ({bound_by})"
+              f"{'' if was_ms is None else f' was_ms {was_ms:.4f} (parent)'}", flush=True)
         if not (rel <= rel_tol and all(e <= t for e, t in zip(errs, abs_tols))):  # NaN fails too
             fail(f"{label}: rel l2 {rel} / max abs {err} above {rel_tol} / {max_abs_tol}")
         weak = [f for f, r in fault_rel.items() if not r > rel_tol]
@@ -552,19 +625,20 @@ def kernel_phase(torch, ops, part: str | None = None, parent_front=None) -> dict
                                 plain_ms=plain_ms, library_ms=library_ms,
                                 library=None if library is None else library[0],
                                 bound_ms=bound_ms, bound_by=bound_by,
-                                planted_fault_rel_l2=fault_rel))
+                                planted_fault_rel_l2=fault_rel,
+                                **({} if was_ms is None else {"was_ms": was_ms})))
 
     # K3's and K5's f32 kernels (also under --f32-kernels): K3 at
     # ATTENTION_F32_CASES with its LSE, K5 at every int8 case of one request
     # and of a served call, f32 activations. Faults: an operand rounded to
     # bf16 or to TF32, and each kernel's own (mask, tail keys; scale, last K
     # step). Library calls: SDPA on f32 inputs, f32 matmul on the dequantized
-    # weight (TF32 off for both). Bound: f32 products at the f32 FMA peak.
+    # weight (TF32 off for both). Bound: f32-accurate products at the
+    # split-TF32 rate (3xTF32 for K3, 2xTF32 for K5: its weight is exact).
     for label, m, kdim, n in INT8_CASES + SERVED_INT8_CASES if part in (None, "f32") else ():
         x = normal(m, kdim)
         q8, scale = ops.quantize_weight(normal(kdim, n) * uniform(n, lo=0.5, hi=2.0))
         w_deq = q8.float() * scale
-        flops, _ = int8_work(m, kdim, n)
         compare("int8_dense_f32", f"{label} M{m} K{kdim} N{n}",
                 lambda: ops.int8_dense(x, q8, scale),
                 lambda: ops.int8_dense_reference(x, q8, scale),
@@ -573,10 +647,13 @@ def kernel_phase(torch, ops, part: str | None = None, parent_front=None) -> dict
                  "scale ignored": lambda: x @ q8.float(),
                  "last K step dropped": lambda: ops.int8_dense_reference(
                      x[:, :-16], q8[:-16], scale)},
-                (flops, 4 * m * kdim + kdim * n + 4 * n + 4 * m * n, 0, PEAK_F32_FLOPS),
+                (*int8_work(m, kdim, n, 4), 0, PEAK_2XTF32_FLOPS),
                 ("matmul f32-dequantized, TF32 off", lambda: torch.matmul(x, w_deq)),
-                tols=(F32_REL_L2_TOL, F32_MAX_ABS_TOL))
-        cases["int8_dense_f32"][-1].update(m=m, k=kdim, n=n)
+                tols=(F32_REL_L2_TOL, F32_MAX_ABS_TOL),
+                was=None if parent_f32 is None else (
+                    lambda: parent_f32["int8_dense_f32"](x, q8, scale)))
+        cases["int8_dense_f32"][-1].update(m=m, k=kdim, n=n,
+                                           tile=ops.qdense.int8_dense_f32_tile(m, kdim, n, sms))
     for label, (b, t, h, d, lens) in ATTENTION_F32_CASES if part in (None, "f32") else ():
         q, k, v = (normal(b, t, h, d) for _ in range(3))
         pos = torch.arange(t, device=dev)[None]
@@ -599,7 +676,7 @@ def kernel_phase(torch, ops, part: str | None = None, parent_front=None) -> dict
         compare("attention_f32", f"{label} with LSE",
                 lambda: ops.flash_mha(q, k, v, mask=mask, return_lse=True), plain_lse, faults,
                 (4 * h * t * n_keys * d, 4 * (4 * b * t * h * d) + b * t + 4 * b * h * t,
-                 h * t * n_keys, PEAK_F32_FLOPS),
+                 h * t * n_keys, PEAK_3XTF32_FLOPS),
                 ("scaled_dot_product_attention f32", lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, attn_mask=sdpa_mask)),
                 tols=(F32_REL_L2_TOL, F32_MAX_ABS_TOL))
@@ -608,7 +685,7 @@ def kernel_phase(torch, ops, part: str | None = None, parent_front=None) -> dict
     # Faults: delta dropped, the mask ignored, the last query tile's dO
     # dropped, q rounded to TF32. Library call: SDPA's f32 backward (forward
     # and backward timed, the forward subtracted). Bound: the five products
-    # at the f32 FMA peak.
+    # at the 3xTF32 rate.
     for label, (b, t, h, d, lens) in ATTENTION_TRAIN_CASES if part in (None, "f32") else ():
         q, k, v, g = (normal(b, t, h, d) for _ in range(4))
         n_keys = [t] * b if lens is None else list(lens)
@@ -643,9 +720,11 @@ def kernel_phase(torch, ops, part: str | None = None, parent_front=None) -> dict
         compare("attention_bwd_f32", f"{label} f32",
                 lambda: ops.flash_mha_bwd(q, k, v, mask, o, lse, g), bwd_plain, faults,
                 (10 * key_work, 4 * (8 * b * t * h * d + b * h * t) + b * t,
-                 sum(n_keys) * t * h, PEAK_F32_FLOPS),
+                 sum(n_keys) * t * h, PEAK_3XTF32_FLOPS),
                 ("scaled_dot_product_attention f32 backward", sdpa_fwd_bwd, sdpa_fwd),
-                tols=(F32_REL_L2_TOL, F32_MAX_ABS_TOL))
+                tols=(F32_REL_L2_TOL, F32_MAX_ABS_TOL),
+                was=None if parent_f32 is None else (
+                    lambda: parent_f32["attention_bwd_f32"](q, k, v, mask, o, lse, g)))
         if mask is not None:  # keys at padded positions get exactly zero dk and dv
             _, dk, dv = ops.flash_mha_bwd(q, k, v, mask, o, lse, g)
             if dk[~mask].any() or dv[~mask].any():
@@ -1604,7 +1683,6 @@ def cli_path(torch, ops, dev, smi: str) -> dict:
     import signal
     import tempfile
     import urllib.request
-    from pathlib import Path
 
     import numpy as np
     from scipy.io import wavfile
@@ -2210,7 +2288,6 @@ def preprocessing_path(torch, dev, smi: str) -> dict:
     itself at the CLI's default size on seeded features. Returns the
     launches of the two CLIs and of the step."""
     import tempfile
-    from pathlib import Path
 
     import numpy as np
 
@@ -2475,7 +2552,6 @@ def source_faults() -> int:
     package and of this script in a temporary directory with that one edit,
     built there; each must be rejected."""
     import tempfile
-    from pathlib import Path
 
     root = Path(__file__).resolve().parent
     pkg = root / "edm_tts_tpu_torch"
@@ -2537,8 +2613,12 @@ def main() -> int:
                       help="only the f32 K3, K4 and K5 cases of the kernel phase; exit 3 when "
                            "one is outside its limits")
     parser.add_argument("--parent", default=None, metavar="DIR",
-                        help="another checkout of this repository whose K2 front to time "
-                             "beside this one's in K2's cases")
+                        help="another checkout of this repository whose K2 front (the "
+                             "10-argument edm_tconv_phase of before PR 8) to time beside this "
+                             "one's in K2's cases")
+    parser.add_argument("--parent-f32", default=None, metavar="DIR",
+                        help="another checkout of this repository whose FFMA K4-f32 and K5-f32 "
+                             "(parent_f32_kernels) to time beside this one's in their cases")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False; this smoke run needs an NVIDIA GPU")
@@ -2551,15 +2631,15 @@ def main() -> int:
     torch.set_grad_enabled(False)
     part = ("attention" if args.attention_kernels else "int8" if args.int8_kernels
             else "codec" if args.codec_kernels else "f32" if args.f32_kernels else None)
-    parent_front = None
+    parent_front = parent_f32 = None
     if args.parent is not None:
-        from pathlib import Path
-
         from edm_tts_tpu_torch.profile_decoder_block import parent_front as build_parent_front
         parent_front = build_parent_front(Path(args.parent))
+    if args.parent_f32 is not None:
+        parent_f32 = parent_f32_kernels(torch, Path(args.parent_f32))
     if part is not None:
         try:
-            kernel_phase(torch, ops, part, parent_front)
+            kernel_phase(torch, ops, part, parent_front, parent_f32)
         except CheckFailed as e:
             print(e.code, file=sys.stderr, flush=True)
             return 3
@@ -2595,7 +2675,7 @@ def main() -> int:
     print(f"build: {lib_path.name} in {time.perf_counter() - t0:.2f} s", flush=True)
 
     # 3. kernels against their plain versions
-    cases = kernel_phase(torch, ops, parent_front=parent_front)
+    cases = kernel_phase(torch, ops, parent_front=parent_front, parent_f32=parent_f32)
 
     # 4. end to end at full width
     t0 = time.perf_counter()

@@ -1,9 +1,10 @@
 // Tile staging of the attention kernels K3 (attention.cu), K4
-// (attention_bwd.cu) and K6 (attn_variants.cu): TMA copies of 64-row tiles
-// of a (B, T, H, D) bf16 tensor into swizzled shared memory, completed on
-// mbarriers, and the scan of the key mask into 64-key tiles. K5 (qdense.cu)
-// and the codec GEMM of K1 and K2 (conv_gemm.cuh) use its mbarrier, TMA and
-// tensor-map helpers.
+// (attention_bwd.cu, and at f32 attention_bwd_f32.cu) and K6
+// (attn_variants.cu): TMA copies of 64-row tiles of a (B, T, H, D) bf16 or
+// f32 tensor into swizzled shared memory, completed on mbarriers, and the
+// scan of the key mask into 64-key tiles. K5 (qdense.cu, qdense_f32.cu) and
+// the codec GEMM of K1 and K2 (conv_gemm.cuh) use its mbarrier, TMA,
+// cluster and tensor-map helpers.
 //
 // A tile is 64 rows (time steps of one batch row and head) x DP bf16 (D
 // padded to 32 or 64). The tensor map views the tensor as 4-D (D, H, T, B),
@@ -107,6 +108,16 @@ static __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorM
       : "memory");
 }
 
+// One box of a 2-D tensor map at (c0, c1).
+static __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                                   uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 static __device__ __forceinline__ void tma_load_1d(uint32_t dst, const CUtensorMap* map,
                                                    uint32_t bar, int c0) {
   asm volatile(
@@ -114,6 +125,30 @@ static __device__ __forceinline__ void tma_load_1d(uint32_t dst, const CUtensorM
       "[%0], [%1, {%3}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0)
       : "memory");
+}
+
+// Orders this thread's earlier shared-memory accesses (generic proxy)
+// before later ones of the async proxy: TMA copies into the same bytes, or
+// wgmma reading operands the threads wrote.
+static __device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Thread-block cluster: every thread of every block of the cluster arrives
+// and waits; shared-memory writes before it are seen by the cluster after.
+static __device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// f32 at shared address addr of the block of cluster rank r.
+static __device__ __forceinline__ float ld_cluster_f32(uint32_t addr, uint32_t r) {
+  uint32_t peer;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(peer) : "r"(addr), "r"(r));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(peer) : "memory");
+  return v;
 }
 
 // A ring of S shared-memory stages that tiles 0, 1, 2, ... pass through in
@@ -255,6 +290,44 @@ static cudaError_t rows_map(CUtensorMap* map, const void* ptr, int B, int T, int
       unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
       DP == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Tensor map of a (B, T, H, D) f32 tensor with D % 4 == 0 and a 16-byte
+// aligned base, in (32, 1, 64, 1) boxes: 64 rows of 128 bytes, the 128-byte
+// swizzle's span (a wider row takes one box per 32 columns; lanes past D
+// are zero-filled).
+static cudaError_t rows_map_f32(CUtensorMap* map, const void* ptr, int B, int T, int H, int D) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)T, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 4, (cuuint64_t)H * D * 4,
+                                 (cuuint64_t)T * H * D * 4};
+  const cuuint32_t box[4] = {32, 1, (cuuint32_t)kTileRows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(ptr), dims, strides, box,
+      unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Tensor map of a row-major (rows, cols) matrix with a 16-byte aligned base
+// and rows of a multiple of 16 bytes, in (box_cols, box_rows) boxes with the
+// given swizzle (128-byte unless told); zeros past the edges.
+static cudaError_t matrix_map(CUtensorMap* map, const void* ptr, CUtensorMapDataType type,
+                              int elem_bytes, int rows, int cols, int box_cols, int box_rows,
+                              CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box, unit,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 

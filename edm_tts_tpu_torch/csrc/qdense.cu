@@ -71,32 +71,6 @@ struct QCfg {
   static constexpr size_t kSmem = (size_t)kQStages * kStageBytes + 16 * kQStages + 1024;
 };
 
-// Thread-block cluster: every thread of every block of the cluster arrives
-// and waits; shared-memory writes before it are seen by the cluster after.
-static __device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release.aligned;\n"
-      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// f32 at shared address addr of the block of cluster rank r.
-static __device__ __forceinline__ float ld_cluster_f32(uint32_t addr, uint32_t r) {
-  uint32_t peer;
-  float v;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(peer) : "r"(addr), "r"(r));
-  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(peer) : "memory");
-  return v;
-}
-
-static __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
-                                                   uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
 // Byte B of lo and byte B of hi, read as int8, as a bf16 pair (lo in the
 // low half), exactly: with b a byte, bf16 0x4300 | (b & 0x7f) is
 // 128 + (b & 127) and 0x4300 | (b & 0x80) is 128, or 256 for a negative b;
@@ -259,24 +233,6 @@ __global__ void __launch_bounds__(256, 1) int8_dense_kernel(
       *reinterpret_cast<uint32_t*>(out + (size_t)m * N + n) =
           pack_bf16(acc[4 * i + e] * sc0, acc[4 * i + 2 + e] * sc1);
     }
-}
-
-// Tensor map of a row-major (rows, cols) matrix with a 16-byte aligned base
-// and rows of a multiple of 16 bytes, in (box_cols, box_rows) boxes with
-// 128-byte swizzle; zeros past the edges.
-static cudaError_t matrix_map(CUtensorMap* map, const void* ptr, CUtensorMapDataType type,
-                              int elem_bytes, int rows, int cols, int box_cols, int box_rows) {
-  EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
-  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  const cuuint32_t unit[2] = {1, 1};
-  const CUresult r = encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box, unit,
-                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 template <int BM>

@@ -1,7 +1,8 @@
 // Warpgroup matrix multiply (wgmma) helpers for Hopper (sm_90a): products
-// of a 64-row A tile held in registers (WgmmaRS, K5: qdense.cu) or in
-// shared memory (WgmmaSS, K1 and K2: conv_gemm.cuh) with a B tile in
-// shared memory, accumulated in f32 registers.
+// of a 64-row A tile held in registers (WgmmaRS, K5: qdense.cu; WgmmaTF32,
+// K5 at f32: qdense_f32.cu) or in shared memory (WgmmaSS, K1 and K2:
+// conv_gemm.cuh) with a B tile in shared memory, accumulated in f32
+// registers.
 //
 // WgmmaRS<N>::run(d, a, desc) issues wgmma.mma_async m64nNk16 bf16 x bf16
 // -> f32, d += A (64 x 16) * B (16 x N). Its operands:
@@ -25,6 +26,13 @@
 //      (sw128_mn_desc: 64-row chunks); the k-th 16-row slice starts at
 //      addr + 2048 k;
 //   d: as above.
+// WgmmaTF32<N>::run(d, a, desc) issues wgmma.mma_async m64nNk8 TF32 x TF32
+// -> f32, d += A (64 x 8) * B (8 x N), both operands K-major (TF32 takes no
+// transpose): a as mma.sync m16n8k8's TF32 A fragment per warp (a[0] row
+// g, k tg; a[1] row g+8, k tg; a[2] row g, k tg+4; a[3] row g+8, k tg+4),
+// desc as WgmmaRS's (N rows of 128 bytes, 32 TF32 k values each, 128-byte
+// swizzle; the j-th 8-deep slice at +32 bytes), d as above; accumulate 0
+// writes d = A * B instead (scale-d false).
 // The product runs asynchronously: wgmma_fence orders register writes
 // before it, wgmma_commit closes a group of products, wgmma_wait<n> waits
 // until at most n groups are in flight. Registers a product reads or
@@ -151,6 +159,53 @@ struct WgmmaRS<256> {
           "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
           "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
+template <int N>
+struct WgmmaTF32;
+
+template <>
+struct WgmmaTF32<64> {
+  static __device__ __forceinline__ void run(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t desc, uint32_t accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+  }
+};
+
+template <>
+struct WgmmaTF32<128> {
+  static __device__ __forceinline__ void run(float (&d)[64], const uint32_t (&a)[4],
+                                             uint64_t desc, uint32_t accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
   }
 };
 

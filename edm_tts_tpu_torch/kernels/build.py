@@ -111,7 +111,7 @@ def library() -> ctypes.CDLL:
     lib.edm_int8_dense.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
     lib.edm_attn_variant.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
     lib.edm_attention_f32.argtypes = [ptr] * 6 + [i32] * 5 + [ctypes.c_float, ptr]
-    lib.edm_int8_dense_f32.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
+    lib.edm_int8_dense_f32.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
     lib.edm_attention_bwd_f32.argtypes = [ptr] * 10 + [i32] * 5 + [ctypes.c_float, ptr]
     for fn in (lib.edm_resunit, lib.edm_tconv_phase, lib.edm_attention,
                lib.edm_attention_bwd, lib.edm_int8_dense, lib.edm_attn_variant,

@@ -23,11 +23,13 @@ K3's query tile (64 or 128 rows per block) is ``attention_query_tile``,
 or the caller's ``block_q``.
 
 f32 q, k, v on the card go to K3's and K4's f32 kernels
-(csrc/attention_f32.cu, csrc/attention_bwd_f32.cu: f32 products on the FMA
-units, f32 outputs, as the Pallas kernels keep the input dtype); they take
-D % 4 == 0 (the wrappers zero-pad other D). ``FlashMHA`` joins them as it
-joins the bf16 pair, so f32 training differentiates f32 attention on the
-card as the JAX trainers do with ``bf16: false``.
+(csrc/attention_f32.cu: f32 products on the FMA units; csrc/attention_bwd_f32.cu:
+products to f32 accuracy as three TF32 products of split operands on the
+tensor cores; f32 outputs, as the Pallas kernels keep the input dtype);
+they take D % 4 == 0 (the wrappers zero-pad other D; K4-f32 pads to a
+multiple of 8 inside, by the copy engine's zero fill). ``FlashMHA`` joins
+them as it joins the bf16 pair, so f32 training differentiates f32
+attention on the card as the JAX trainers do with ``bf16: false``.
 """
 
 from __future__ import annotations
@@ -244,8 +246,8 @@ def flash_mha_bwd(q, k, v, mask, o, lse, g):
     kernel, f32 gradients) ``(B, T, H, D)``, ``lse`` f32 ``(B*H, T_q)``
     from ``flash_mha(..., return_lse=True)``. ``delta = rowsum(dO * O)`` is
     one torch reduction here, outside the kernel, as the JAX package
-    computes it in XLA. The bf16 K4 takes lse and delta with rows padded to
-    a multiple of 4 (each 64-query box it copies must start on 16 bytes).
+    computes it in XLA. Both K4 kernels take lse and delta with rows padded
+    to a multiple of 4 (each 64-query box they copy must start on 16 bytes).
     """
     if not q.is_cuda:
         return flash_mha_bwd_reference(q, k, v, mask, o, lse, g)
@@ -257,9 +259,7 @@ def flash_mha_bwd(q, k, v, mask, o, lse, g):
     if lse.shape != (b * h, tq) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError(f"flash_mha_bwd: lse must be contiguous f32 ({b * h}, {tq})")
     mask, mask_ptr = _mask_ptr("flash_mha_bwd", mask, b, tk, q.device)
-    delta = (g.float() * o.float()).sum(-1).transpose(1, 2).reshape(b * h, tq)
-    ld = -(-tq // 4) * 4
-    lse, delta = (_aligned(pad_depth(x, ld).contiguous()) for x in (lse, delta))
+    lse, delta = _padded_rows(lse, (g.float() * o.float()).sum(-1), b, h, tq)
     dp = padded_depth(d)
     q, k, v, g = (_aligned(pad_depth(x, dp)) for x in (q, k, v, g))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
@@ -273,6 +273,14 @@ def flash_mha_bwd(q, k, v, mask, o, lse, g):
     if dp != d:
         dq, dk, dv = (x[..., :d].contiguous() for x in (dq, dk, dv))
     return dq, dk, dv
+
+
+def _padded_rows(lse: torch.Tensor, delta: torch.Tensor, b: int, h: int, tq: int):
+    """lse ``(B*H, T_q)`` and delta ``(B, T_q, H)`` as K4 takes them: f32
+    ``(B*H, ld)`` rows, ld = T_q rounded up to a multiple of 4."""
+    ld = -(-tq // 4) * 4
+    delta = delta.transpose(1, 2).reshape(b * h, tq)
+    return tuple(_aligned(pad_depth(x, ld).contiguous()) for x in (lse, delta))
 
 
 def _flash_mha_bwd_f32(q, k, v, mask, o, lse, g):
@@ -290,7 +298,7 @@ def _flash_mha_bwd_f32(q, k, v, mask, o, lse, g):
     if lse.shape != (b * h, tq) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError(f"flash_mha_bwd: lse must be contiguous f32 ({b * h}, {tq})")
     mask, mask_ptr = _mask_ptr("flash_mha_bwd", mask, b, tk, q.device)
-    delta = (g * o).sum(-1).transpose(1, 2).contiguous()  # (B, H, T_q)
+    lse, delta = _padded_rows(lse, (g * o).sum(-1), b, h, tq)
     dp = -(-d // 4) * 4
     q, k, v, g = (_aligned(pad_depth(x, dp)) for x in (q, k, v, g))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)

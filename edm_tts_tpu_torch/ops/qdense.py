@@ -12,8 +12,10 @@ cast to ``x.dtype``: kernel K5 for a CUDA tensor, ``int8_dense_reference``
 takes one of ``INT8_TILES`` per launch, ``int8_dense_tile``'s choice for
 the shape and the card unless the caller forces one.
 f32 activations on the card go to K5's f32 kernel (csrc/qdense_f32.cu: the
-int8 weight widened to f32, f32 products and output, as the Pallas kernel
-widens the weight to the activation's dtype); it takes no tile.
+int8 weight widened on chip, products to f32 accuracy as two TF32 products
+on the tensor cores, x split into hi and lo parts, and an f32 output, as
+the Pallas kernel widens the weight to the activation's dtype); it takes
+one of ``INT8_F32_TILES`` per launch, ``int8_dense_f32_tile``'s choice.
 ``implementation="w8a8"`` also quantizes the activations per row and runs
 an s8 x s8 -> s32 product; it is plain PyTorch in both packages
 (``torch._int_mm`` on the card, an int32 matmul on the CPU).
@@ -47,25 +49,69 @@ WAVE_US = 8.0
 SPLIT_US = 3.0
 
 
-@functools.lru_cache(maxsize=4096)  # a served call asks for ~20 shapes 2105 times
-def int8_dense_tile(m: int, k: int, n: int, sms: int = H100_SMS) -> tuple[int, int, int]:
-    """K5's launch for an ``(m, k) @ (k, n)`` product on a card of ``sms``
-    multiprocessors: ``(output columns, x rows, splits)``, a tile of
-    INT8_TILES whose columns divide ``n`` and 1 to MAX_SPLITS blocks per
-    output tile, the one of least estimated time: waves of blocks (one
-    block per multiprocessor) times a block's K steps times STEP_US plus
-    WAVE_US, plus SPLIT_US per added split. A tie goes to the larger tile,
-    then to fewer splits."""
-    steps = -(-k // 64)
+# K5's f32 kernel's tiles, (output columns, x rows) per block, in the order
+# of its tile index (csrc/qdense_f32.cu, edm_int8_dense_f32), and its most
+# blocks (of one cluster) per output tile
+INT8_F32_TILES = ((128, 128), (128, 64))
+MAX_SPLITS_F32 = 8
+# The cost model of int8_dense_f32_tile, int8_dense_tile's with a block's
+# time per 32-deep K step (fitted to ``profile_qdense --f32``'s sweep of
+# every launch at one request's and one served batch's shapes on an H100
+# SXM: its picks sum to within 1 % of the fastest launch of each case)
+F32_STEP_US = {128: 0.55, 64: 0.30}
+F32_WAVE_US = 12.0
+F32_SPLIT_US = 0.5
+
+
+def _least_cost_launch(m, k, n, sms, tiles, max_splits, k_step, step_us, wave_us, split_us):
+    """The launch ``(output columns, x rows, splits)`` of least estimated
+    time: a tile of ``tiles`` whose columns divide ``n`` and 1 to
+    ``max_splits`` blocks per output tile (no more than the ceil(k /
+    k_step) K steps); waves of blocks (one block per multiprocessor) times a
+    block's K steps times ``step_us[rows]`` plus ``wave_us``, plus
+    ``split_us`` per added split. A tie goes to the larger tile, then to
+    fewer splits."""
+    steps = -(-k // k_step)
 
     def cost(launch):
         bn, bm, splits = launch
         waves = -(-(n // bn * -(-m // bm) * splits) // sms)
-        block = -(-steps // splits) * STEP_US[bm] + WAVE_US
-        return waves * block + (splits - 1) * SPLIT_US, -bm, splits
+        block = -(-steps // splits) * step_us[bm] + wave_us
+        return waves * block + (splits - 1) * split_us, -bm, splits
 
-    return min(((bn, bm, s) for bn, bm in INT8_TILES if n % bn == 0
-                for s in range(1, min(MAX_SPLITS, steps) + 1)), key=cost)
+    return min(((bn, bm, s) for bn, bm in tiles if n % bn == 0
+                for s in range(1, min(max_splits, steps) + 1)), key=cost)
+
+
+@functools.lru_cache(maxsize=4096)  # a served call asks for ~20 shapes 2105 times
+def int8_dense_tile(m: int, k: int, n: int, sms: int = H100_SMS) -> tuple[int, int, int]:
+    """K5's launch for an ``(m, k) @ (k, n)`` product on a card of ``sms``
+    multiprocessors: a tile of INT8_TILES, 1 to MAX_SPLITS splits of its 64-deep
+    K steps, by the cost model STEP_US, WAVE_US, SPLIT_US
+    (``_least_cost_launch``)."""
+    return _least_cost_launch(m, k, n, sms, INT8_TILES, MAX_SPLITS, 64, STEP_US, WAVE_US,
+                              SPLIT_US)
+
+
+@functools.lru_cache(maxsize=4096)
+def int8_dense_f32_tile(m: int, k: int, n: int, sms: int = H100_SMS) -> tuple[int, int, int]:
+    """K5's f32 launch for an ``(m, k) @ (k, n)`` product on a card of ``sms``
+    multiprocessors: a tile of INT8_F32_TILES, 1 to MAX_SPLITS_F32 splits of
+    its 32-deep K steps, by the cost model F32_STEP_US, F32_WAVE_US,
+    F32_SPLIT_US (``_least_cost_launch``)."""
+    return _least_cost_launch(m, k, n, sms, INT8_F32_TILES, MAX_SPLITS_F32, 32, F32_STEP_US,
+                              F32_WAVE_US, F32_SPLIT_US)
+
+
+def _check_tile(tile, tiles, max_splits: int, k_step: int, k: int, n: int):
+    """``tile`` if it is (columns, rows, splits) with (columns, rows) one of
+    ``tiles`` dividing N and 1 <= splits <= min(max_splits, ceil(K / k_step))."""
+    most = min(max_splits, -(-k // k_step))
+    if len(tile) != 3 or tuple(tile[:2]) not in tiles or n % tile[0] or not 1 <= tile[2] <= most:
+        raise ValueError(f"int8_dense: tile {tile} is not (columns, rows, splits) with "
+                         f"(columns, rows) one of {tiles} dividing N={n} and "
+                         f"1 <= splits <= {most}")
+    return tile
 
 
 def quantize_weight(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -115,8 +161,10 @@ def int8_dense(x: torch.Tensor, kernel_q: torch.Tensor, kernel_scale: torch.Tens
     on CUDA it raises when autograd would need a gradient through it.
     ``tile`` forces K5's launch, ``(output columns, x rows, splits)`` with
     the first two one of ``INT8_TILES`` dividing N and 1 <= splits <=
-    min(MAX_SPLITS, ceil(K / 64)); None takes ``int8_dense_tile``'s. The CPU
-    path computes the same function at any tile and ignores it.
+    min(MAX_SPLITS, ceil(K / 64)) (f32 x: one of ``INT8_F32_TILES``, 1 <=
+    splits <= min(MAX_SPLITS_F32, K / 32)); None takes ``int8_dense_tile``'s
+    (``int8_dense_f32_tile``'s). The CPU path computes the same function at
+    any tile and ignores it.
     """
     if implementation not in MODES:
         raise ValueError(f"int8_dense: unknown implementation {implementation!r}")
@@ -142,14 +190,13 @@ def int8_dense(x: torch.Tensor, kernel_q: torch.Tensor, kernel_scale: torch.Tens
                              f"on {x.device}")
     m = xf.shape[0]
     if x.dtype == torch.float32:
-        return _int8_dense_f32(xf, kernel_q, kernel_scale).reshape(*lead, n)
+        if tile is None:
+            tile = int8_dense_f32_tile(m, k, n, sm_count(x.device.index or 0))
+        tile = _check_tile(tile, INT8_F32_TILES, MAX_SPLITS_F32, 32, k, n)
+        return _int8_dense_f32(xf, kernel_q, kernel_scale, tile).reshape(*lead, n)
     if tile is None:
         tile = int8_dense_tile(m, k, n, sm_count(x.device.index or 0))
-    elif (len(tile) != 3 or tuple(tile[:2]) not in INT8_TILES or n % tile[0]
-          or not 1 <= tile[2] <= min(MAX_SPLITS, -(-k // 64))):
-        raise ValueError(f"int8_dense: tile {tile} is not (columns, rows, splits) with "
-                         f"(columns, rows) one of {INT8_TILES} dividing N={n} and "
-                         f"1 <= splits <= {min(MAX_SPLITS, -(-k // 64))}")
+    tile = _check_tile(tile, INT8_TILES, MAX_SPLITS, 64, k, n)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0:
         return out.reshape(*lead, n)
@@ -164,16 +211,17 @@ def int8_dense(x: torch.Tensor, kernel_q: torch.Tensor, kernel_scale: torch.Tens
     return out.reshape(*lead, n)
 
 
-def _int8_dense_f32(xf: torch.Tensor, kernel_q: torch.Tensor,
-                    kernel_scale: torch.Tensor) -> torch.Tensor:
-    """K5's f32 kernel on checked ``(M, K)`` f32 activations."""
+def _int8_dense_f32(xf: torch.Tensor, kernel_q: torch.Tensor, kernel_scale: torch.Tensor,
+                    tile: tuple[int, int, int]) -> torch.Tensor:
+    """K5's f32 kernel on checked ``(M, K)`` f32 activations at a checked tile."""
     m, n = xf.shape[0], kernel_q.shape[1]
     out = torch.empty((m, n), dtype=torch.float32, device=xf.device)
     if m == 0:
         return out
     err = library().edm_int8_dense_f32(
         xf.data_ptr(), kernel_q.data_ptr(), kernel_scale.data_ptr(), out.data_ptr(),
-        m, kernel_q.shape[0], n, torch.cuda.current_stream(xf.device).cuda_stream,
+        m, kernel_q.shape[0], n, INT8_F32_TILES.index(tuple(tile[:2])), tile[2],
+        torch.cuda.current_stream(xf.device).cuda_stream,
     )
     check_launch(err, "int8_dense")
     f32_launches["int8_dense_f32"] += 1

@@ -1,6 +1,6 @@
 """K5 (int8 weight-only dense) case by case and tile by tile on the card.
 
-    python3 -m edm_tts_tpu_torch.profile_qdense [--served-shapes] [--out FILE]
+    python3 -m edm_tts_tpu_torch.profile_qdense [--served-shapes] [--f32] [--out FILE]
 
 For each case (M, K, N) of ``CASES`` (one request's int8 linears) and
 ``SERVED_CASES`` (the int8 linears of one served engine call, bucket 4):
@@ -15,8 +15,12 @@ bound (``utils/devtime.py``). Times are device medians (``median_ms``).
 With ``--served-shapes`` it first builds the full-width models, quantizes
 them behind ``TTSEngine`` (``profile_synthesis.served_engine``), answers
 the three served texts in one call and prints each (M, K, N) K5 ran at with
-its launch count: what ``SERVED_CASES`` lists. ``--out`` writes the rows as
-JSON.
+its launch count: what ``SERVED_CASES`` lists. With ``--f32`` the cases run
+with f32 activations through K5's f32 kernel instead: every launch of
+``INT8_F32_TILES`` with 1 to ``MAX_SPLITS_F32`` splits (relative l2 within
+2^-16), beside the f32 matmul on the dequantized weight with TF32 off, the
+sweep that ``int8_dense_f32_tile``'s cost model is fitted to. ``--out``
+writes the rows as JSON.
 """
 
 from __future__ import annotations
@@ -54,10 +58,11 @@ SERVED_CASES = (
 )
 
 
-def int8_work(m: int, k: int, n: int) -> tuple[int, int]:
+def int8_work(m: int, k: int, n: int, x_bytes: int = 2) -> tuple[int, int]:
     """(products, bytes) of one K5 call: x read once, the int8 weight and
-    the f32 scale once, the bf16 output written once."""
-    return 2 * m * k * n, 2 * m * k + k * n + 4 * n + 2 * m * n
+    the f32 scale once, the output (x's dtype, ``x_bytes`` an element)
+    written once."""
+    return 2 * m * k * n, x_bytes * m * k + k * n + 4 * n + x_bytes * m * n
 
 
 def case_inputs(m: int, k: int, n: int, gen: torch.Generator, dev) -> tuple:
@@ -135,10 +140,55 @@ def profile(cases, seed: int = 0) -> list[dict]:
     return rows
 
 
+@torch.no_grad()
+def profile_f32(cases, seed: int = 0) -> list[dict]:
+    """One row per case for K5's f32 kernel: every launch, the chosen one,
+    the f32 matmul and the bound at the 2xTF32 rate."""
+    from edm_tts_tpu_torch.ops import int8_dense, int8_dense_reference, quantize_weight
+    from edm_tts_tpu_torch.ops.qdense import INT8_F32_TILES, MAX_SPLITS_F32, int8_dense_f32_tile
+    from edm_tts_tpu_torch.utils.devtime import PEAK_2XTF32_FLOPS, bound, median_ms
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = []
+    for label, m, k, n in cases:
+        x = torch.randn(m, k, generator=gen, device=dev)
+        mag = 0.5 + 1.5 * torch.rand(n, generator=gen, device=dev)
+        q, scale = quantize_weight(torch.randn(k, n, generator=gen, device=dev) * mag)
+        ref = int8_dense_reference(x, q, scale)
+        tiles = {}
+        for bn, bm in INT8_F32_TILES:
+            for splits in range(1, min(MAX_SPLITS_F32, k // 32) + 1):
+                tile = (bn, bm, splits)
+                rel = ((int8_dense(x, q, scale, tile=tile) - ref).norm() / ref.norm()).item()
+                if not rel <= 2.0 ** -16:
+                    raise SystemExit(f"profile_qdense: f32 tile {tile} at M{m} K{k} N{n}: "
+                                     f"relative l2 {rel}")
+                tiles["{}x{}/{}".format(*tile)] = median_ms(
+                    lambda: int8_dense(x, q, scale, tile=tile))
+        w_deq = q.float() * scale
+        chosen = "{}x{}/{}".format(*int8_dense_f32_tile(m, k, n, sms))
+        best = min(tiles, key=tiles.get)
+        bound_ms, bound_by = bound(*int8_work(m, k, n, 4), peak_flops=PEAK_2XTF32_FLOPS)
+        row = dict(case=label, m=m, k=k, n=n, tile=chosen, ms=tiles[chosen], best=best,
+                   tiles=tiles, matmul_f32_ms=median_ms(lambda: torch.matmul(x, w_deq)),
+                   bound_ms=bound_ms, bound_by=bound_by)
+        rows.append(row)
+        print(f"{label} M{m} K{k} N{n}: K5 f32 {row['ms']:.4f} ms at {chosen} (best {best} "
+              f"{tiles[best]:.4f}; {', '.join(f'{t} {v:.4f}' for t, v in tiles.items())}); f32 "
+              f"matmul {row['matmul_f32_ms']:.4f}; bound {bound_ms:.4f} ({bound_by})",
+              flush=True)
+    return rows
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--served-shapes", action="store_true",
                         help="first print the K5 shapes of one served engine call")
+    parser.add_argument("--f32", action="store_true",
+                        help="sweep K5's f32 kernel (f32 activations) instead")
     parser.add_argument("--out", type=Path, default=None, help="JSON file for the rows")
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args()
@@ -155,13 +205,21 @@ def main() -> None:
             print(f"served engine call: K5 at M{m} K{k} N{n}: {count} launches", flush=True)
         print(f"served engine call: {sum(shapes.values())} K5 launches", flush=True)
         torch.cuda.empty_cache()
-    rows = profile(CASES + SERVED_CASES, args.seed)
-    for name, part in (("one request", rows[:len(CASES)]), ("served", rows[len(CASES):])):
-        k5 = sum(r["ms"] for r in part)
-        mm = sum(r["matmul_bf16_ms"] for r in part)
-        print(f"sum over the {name} cases: K5 {k5:.4f} ms, bf16 matmul {mm:.4f} ms "
-              f"(K5 / matmul {k5 / mm:.3f}), bound {sum(r['bound_ms'] for r in part):.4f} ms "
-              f"({smi})", flush=True)
+    if args.f32:
+        rows = profile_f32(CASES + SERVED_CASES, args.seed)
+        for name, part in (("one request", rows[:len(CASES)]), ("served", rows[len(CASES):])):
+            print(f"sum over the {name} cases: K5 f32 {sum(r['ms'] for r in part):.4f} ms at "
+                  f"the chosen launches, {sum(r['tiles'][r['best']] for r in part):.4f} at the "
+                  f"best, f32 matmul {sum(r['matmul_f32_ms'] for r in part):.4f}, bound "
+                  f"{sum(r['bound_ms'] for r in part):.4f} ({smi})", flush=True)
+    else:
+        rows = profile(CASES + SERVED_CASES, args.seed)
+        for name, part in (("one request", rows[:len(CASES)]), ("served", rows[len(CASES):])):
+            k5 = sum(r["ms"] for r in part)
+            mm = sum(r["matmul_bf16_ms"] for r in part)
+            print(f"sum over the {name} cases: K5 {k5:.4f} ms, bf16 matmul {mm:.4f} ms "
+                  f"(K5 / matmul {k5 / mm:.3f}), bound {sum(r['bound_ms'] for r in part):.4f} "
+                  f"ms ({smi})", flush=True)
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(dict(device=smi, rows=rows), indent=1))

@@ -6,8 +6,8 @@ scripts: a device median over CUDA events, each run queued behind a ~1 ms
 microseconds through Python) is not counted. ``bound`` is the larger of
 the bytes a function must move over the memory rate, its products over
 the tensor cores' rate and its exponentials over the special-function
-units' rate, at the H100 SXM's published peaks (f32 products at the f32
-FMA rate).
+units' rate, at the H100 SXM's published peaks (f32-accurate products at
+the split-TF32 rates below).
 """
 
 from __future__ import annotations
@@ -19,9 +19,15 @@ import torch
 # dense bf16 tensor cores and HBM3 (NVIDIA's H100 SXM data sheet)
 PEAK_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
-# f32 FMA outside the tensor cores (the data sheet's "FP32"): the peak of
-# the f32 kernels (K3's and K5's), which run no tensor-core product
-PEAK_F32_FLOPS = 67e12
+# dense TF32 tensor cores (the data sheet's "TF32", without sparsity)
+PEAK_TF32_FLOPS = 495e12
+# f32-accurate products on them: an f32 product as three TF32 products of
+# split operands (hi*hi + hi*lo + lo*hi, "3xTF32": K3's and K4's f32
+# kernels), or as two where one operand is exact in TF32 (x_hi*W + x_lo*W
+# with an int8 weight W, "2xTF32": K5's f32 kernel). The least time of the
+# same f32-accurate work on this card, so the f32 kernels' bound.
+PEAK_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3
+PEAK_2XTF32_FLOPS = PEAK_TF32_FLOPS / 2
 # f32 exponentials (ex2 on the MUFU, 16 per SM per clock: 132 SMs at
 # ~1.83 GHz), the figure FlashAttention-3 gives for the H100 SXM5; ex2 on
 # packed bf16x2 does two per operation
@@ -50,8 +56,8 @@ def bound(flops: float, nbytes: float, exps: float = 0.0,
     """(least time in ms, "operations" or "bytes"): ``exps`` counts MUFU
     operations (one per f32 exponential, one per bf16x2 pair); products
     and exponentials run on separate units, so the operations' time is the
-    larger of the two. ``peak_flops``: the products' rate (PEAK_F32_FLOPS
-    for f32 products off the tensor cores)."""
+    larger of the two. ``peak_flops``: the products' rate (PEAK_3XTF32_FLOPS
+    or PEAK_2XTF32_FLOPS for f32-accurate products)."""
     ops_ms = max(flops / peak_flops, exps / PEAK_EXP) * 1e3
     bytes_ms = nbytes / PEAK_BYTES * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")

@@ -9,11 +9,14 @@ K3 at f32 (csrc/attention_f32.cu) at the shapes of the f32 path: HuBERT-large
 (H16 D64, B1 T150-500 and B4 with the key mask), the t2s canvas (H8 D24,
 masked, ragged B4) and the s2a (H16 D64 up to T1250), a batch row with no
 valid key, a depth that is not a multiple of 4, and its LSE. K4 at f32
-(csrc/attention_bwd_f32.cu) at the bf16 K4's cases (the s2a training
-micro-batch, a ragged batch, the masked t2s canvas) and through ``mha``
-under grad. K5 at f32
-(csrc/qdense_f32.cu) at the 31 shapes of profile_qdense (one request's 14
-and a served call's 17) and a ragged last row tile.
+(csrc/attention_bwd_f32.cu, split TF32 on the tensor cores) at the bf16
+K4's cases (the s2a training micro-batch, a ragged batch, the masked t2s
+canvas), at depths the kernel pads inside (D 20, 24, 12, 36), bit-equal
+from run to run, with a batch row that has no valid key, and through
+``mha`` under grad. K5 at f32 (csrc/qdense_f32.cu, split TF32 on warpgroup
+MMA) at the 31 shapes of profile_qdense (one request's 14 and a served
+call's 17), a ragged last row tile, and at each tile with the K steps
+split over 1 to 8 blocks.
 
 Limits, set before the kernels' first run: relative l2 error within 2^-16
 and no element off by more than 2^-14 of the output's largest magnitude (an
@@ -134,6 +137,8 @@ ATTENTION_BWD_CASES = (
     (4, 701, 8, 24, (701, 650, 512, 97)),
     (4, 1382, 8, 24, (1382, 1210, 905, 488)),
     (2, 77, 4, 20, (77, 3)),
+    (2, 130, 2, 12, (130, 64)),
+    (1, 200, 2, 36, None),
 )
 
 
@@ -173,6 +178,24 @@ def test_attention_bwd_f32_matches_plain(dev, b, t, h, d, lens):
     assert all(torch.equal(x, y) for x, y in zip(again, out))  # no atomics
 
 
+def test_attention_bwd_f32_row_without_valid_keys(dev):
+    """K4-f32 with a batch row whose keys all do not count: K3's choice
+    (every key with score 0), so dq = dk = 0 there and dv is the uniform
+    share of dO; the other row against the plain version."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    q, k, v, do = (torch.randn(2, 150, 4, 24, generator=g, device=dev) for _ in range(4))
+    mask = torch.zeros(2, 150, dtype=torch.bool, device=dev)
+    mask[0, :97] = True
+    o, lse = ops.flash_mha(q, k, v, mask=mask, return_lse=True)
+    dq, dk, dv = ops.flash_mha_bwd(q, k, v, mask, o, lse, do)
+    ref = ops.flash_mha_bwd_reference(q, k, v, mask, o, ops.attention_lse_reference(q, k, mask=mask), do)
+    for x, r in zip((dq, dk, dv), ref):
+        _check(x, r)
+    assert not dq[1].any() and not dk[1].any()
+    torch.testing.assert_close(dv[1], (do[1].sum(0) / 150).expand(150, -1, -1),
+                               rtol=1e-5, atol=1e-6)
+
+
 def test_attention_f32_grad_through_mha(dev):
     """``mha`` under grad at f32: K3-f32 with its LSE forward, K4-f32
     backward, the gradients of autograd through the plain version; a batch
@@ -209,3 +232,24 @@ def test_int8_dense_f32_matches_plain(dev, label, m, k, n):
               ("last K step dropped", ops.int8_dense_reference(x[:, :-16], q8[:-16], scale))]
     _check(out, ref, faults)
     assert torch.equal(ops.int8_dense(x, q8, scale), out)
+
+
+@pytest.mark.parametrize("m,k,n", [(516, 1536, 384), (67, 96, 256), (129, 384, 384)])
+@pytest.mark.parametrize("tile", [(128, 128), (128, 64)])
+@pytest.mark.parametrize("splits", [1, 2, 3, 5, 8])
+def test_int8_dense_f32_every_launch(dev, m, k, n, tile, splits):
+    """Each tile of INT8_F32_TILES with its K steps split over 1 to 8 blocks
+    of a cluster (no more than the K / 32 steps) against the plain version;
+    faults: x rounded to TF32 (the lo product dropped) and the last K step
+    dropped."""
+    if splits > k // 32:
+        pytest.skip(f"K {k} has {k // 32} steps of 32")
+    g = torch.Generator(device=dev).manual_seed(m + k + n + splits)
+    x = torch.randn(m, k, generator=g, device=dev)
+    q8, scale = ops.quantize_weight(torch.randn(k, n, generator=g, device=dev))
+    out = ops.int8_dense(x, q8, scale, tile=(*tile, splits))
+    ref = ops.int8_dense_reference(x, q8, scale)
+    _check(out, ref, [("tf32 x", ops.int8_dense_reference(tf32(x), q8, scale)),
+                      ("last K step dropped",
+                       ops.int8_dense_reference(x[:, :-32], q8[:-32], scale))])
+    assert torch.equal(ops.int8_dense(x, q8, scale, tile=(*tile, splits)), out)
