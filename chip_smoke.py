@@ -30,12 +30,16 @@ Phases, each reported on its own line:
      could take (utils/devtime.py: bytes over 3.35 TB/s, products over 989
      TFLOP/s, exponentials over 3.9e12/s, the H100 SXM's peaks); and K3's
      and K5's f32 kernels against their plain f32 versions (TF32 off) at
-     the f32 path's shapes (ATTENTION_F32_CASES; K5 at the 31 int8 cases
-     with f32 activations), and K4's f32 kernel at the bf16 K4's cases,
-     beside SDPA f32 (for K4 its f32 backward) and the f32 matmul on the
-     dequantized weight, bound at the split-TF32 rates (495/3 TFLOP/s for
-     K3 and K4, 495/2 for K5, whose int8 weight is exact in TF32), within
-     2^-16 relative l2 and 2^-14 of the largest output; K1 and K3 also at
+     the f32 path's shapes (ATTENTION_F32_CASES, an edge case
+     ATTENTION_F32_EDGE_CASE, and for K3 also the training shapes
+     ATTENTION_TRAIN_CASES; K5 at the 31 int8 cases with f32 activations),
+     and K4's f32 kernel at the bf16 K4's cases, beside SDPA f32 (for K4
+     its f32 backward) and the f32 matmul on the dequantized weight, bound
+     at the split-TF32 rates (495/3 TFLOP/s for K3 and K4, 495/2 for K5,
+     whose int8 weight is exact in TF32), within 2^-16 relative l2 and
+     2^-14 of the largest output (K3-f32's LSE also within F32_LSE_ABS_TOL,
+     and a second call equal to the bit); with ``--parent-f32 DIR``,
+     another checkout's K3-f32 and K4-f32 timed beside; K1 and K3 also at
      path (j)'s dump shapes (the encoder's 12 units at B8 x 960160 samples,
      HuBERT at B8 T3000 with a ragged key mask);
   4. end to end: full-width models (the default codec and s2a, the t2s of
@@ -144,7 +148,8 @@ There is no CPU fallback: without a CUDA device the script fails.
     python3 chip_smoke.py --source-faults
 
 plants each of SOURCE_FAULTS in a copy of K1's and K2's (the GEMM they
-share), K3's, K4's, K5's, K6's or the f32 K3's, K4's and K5's CUDA source (the
+share), K3's, K4's, K5's, K6's or the f32 K3's, K4's (or the split-TF32
+parts the two share) and K5's CUDA source (the
 package and this script copied into a temporary directory, built there)
 and runs the cases of phase 3 that hold that kernel on it: K1's
 one-request and encoder cases and K2's (``--codec-kernels``), K5's
@@ -185,11 +190,14 @@ REL_L2_TOL = 2.0 ** -6
 # magnitude (4-8 bf16 ulps there): catches a few rows gone wrong, which
 # barely move a relative l2 error over millions of elements
 MAX_ABS_TOL = 2.0 ** -5
-# K3's f32 LSE against its plain version, absolute (measured 9.5e-7 on an
+# K3's LSE against its plain version, absolute (measured 9.5e-7 on an
 # H100): an LSE off by e scales every probability K4 rebuilds by exp(-e),
 # so the relative limits above, at LSE values ~7, would pass a 10 % error
 # in every gradient
 LSE_ABS_TOL = 1e-4
+# K3-f32's LSE, absolute: the limit tests/test_torch_kernels_f32_gpu.py
+# holds it to (an f32 LSE in another summation order is off by ~1e-6)
+F32_LSE_ABS_TOL = 1e-5
 # K3's and K5's f32 kernels against their plain f32 versions (TF32 off): f32
 # products in another summation order leave ~1e-7 to 1e-6; an operand
 # rounded to bf16 or to TF32 (10 mantissa bits), a dropped tail tile, mask or
@@ -298,24 +306,17 @@ KERNELS = {
     "attention_bwd_f32": dict(source="edm_tts_tpu_torch/csrc/attention_bwd_f32.cu",
                               replaces="edm_tts_tpu/ops/pallas_attention.py:234"),
 }
-# K3's f32 kernel at the f32 path's shapes (label: B, T, H, D, key lengths or
-# None): HuBERT-large on a 3 s and a 10 s prompt and its masked batch, the
-# t2s canvas, the s2a at one request and at a full canvas
-ATTENTION_F32_CASES = (
-    ("hubert B1 T150 H16 D64", (1, 150, 16, 64, None)),
-    ("hubert B1 T500 H16 D64", (1, 500, 16, 64, None)),
-    ("hubert B4 T500 H16 D64 mask", (4, 500, 16, 64, (150, 275, 400, 500))),
-    ("t2s T604 H8 D24 mask", (1, 604, 8, 24, (553,))),
-    ("s2a T650 H16 D64", (1, 650, 16, 64, None)),
-    ("s2a T1250 H16 D64 mask", (1, 1250, 16, 64, (1199,))),
-)
-# K3 with its LSE and K4: the s2a training micro-batch, a masked ragged batch
-# and the masked t2s canvas (label: B, T, H, D, key lengths or None)
-ATTENTION_TRAIN_CASES = (
-    ("s2a train B8 T768 H16 D64", (8, 768, 16, 64, None)),
-    ("ragged B4 T701 H8 D24 mask", (4, 701, 8, 24, (701, 650, 512, 97))),
-    ("t2s canvas B4 T1382 H8 D24 mask", (4, 1382, 8, 24, (1382, 1210, 905, 488))),
-)
+# K3's f32 kernel at the f32 path's shapes (ATTENTION_F32_CASES:
+# profile_attention_f32.CASES, HuBERT-large on a 3 s and a 10 s prompt and
+# its masked batch, the t2s canvas, the s2a at one request and at a full
+# canvas) and, with K3 and K4 in bf16 and K4-f32, at the training shapes
+# (ATTENTION_TRAIN_CASES: profile_attention_f32.TRAIN_CASES, the s2a
+# micro-batch, a masked ragged batch, the masked t2s canvas); and at an
+# edge case (label: B, T, H, D, per row the valid key ranges): D 40 (DP 64,
+# the k-steps past D skipped), row 0's keys 128-191 wholly masked between
+# valid ones, row 1 without a valid key (uniform attention)
+ATTENTION_F32_EDGE_CASE = ("edge B2 T300 H4 D40 hole, a row without valid keys",
+                           (2, 300, 4, 40, (((0, 70), (200, 260)), ())))
 # --source-faults: faults planted in copies of the kernels' CUDA sources,
 # each of which the cases of its kernels must reject (K1's and K2's under
 # --codec-kernels, K5's under --int8-kernels, K3's, K4's and K6's under
@@ -395,13 +396,32 @@ SOURCE_FAULTS = {
          "       !(EPI == kPhase && blockIdx.y + 1 == gridDim.y); r += kRowStep) {")]),
 }
 SOURCE_FAULTS.update({
-    # K3's f32 kernel: the running max's rescale, the mask, the tail keys
+    # K3's f32 kernel: the online rescale, the mask, the last partial key
+    # tile, the lo·hi term of Q Kᵀ, the streamed lo parts (K's and V's)
+    # zeroed after the block's split, V^T's keys stored in their own order
+    # instead of P's accumulator column order, the uniform row's scale
     "K3 f32 online rescale dropped": ("attention_f32.cu", [
-        ("const float alpha = exp2f(m - m_new);", "const float alpha = m == -INFINITY ? 0.f : 1.f;")]),
+        ("alpha[r] = ex2_f32(m[r] - mx[r]);", "alpha[r] = m[r] == -INFINITY ? 0.0f : 1.0f;")]),
     "K3 f32 mask ignored": ("attention_f32.cu", [
-        ("(mask != nullptr && !uniform) ? mask + (size_t)b * Tk : nullptr;", "nullptr;")]),
+        ("scan_key_tiles<4 * NWG>(mask,", "scan_key_tiles<4 * NWG>(nullptr,")]),
     "K3 f32 last partial key tile dropped": ("attention_f32.cu", [
-        ("const int n = min(kKeys, Tk - t0);", "const int n = Tk - t0 < kKeys ? 0 : kKeys;")]),
+        ("live, live + nkt, &uniform);",
+         "live, live + nkt, &uniform) -\n"
+         "      (Tk % kTileRows != 0 && kbits[nkt - 1] != 0);")]),
+    "K3 f32 lo·hi term of Q Kᵀ dropped": ("attention_f32.cu", [
+        ("WgmmaTF32SS64::run(sa, qlo, khi, 1);", "")]),
+    "K3 f32 streamed lo parts zeroed": ("attention_f32.cu", [
+        ("split_vt<DP>(st + L::kTile, st + 3 * L::kTile, st + 4 * L::kTile);",
+         "split_vt<DP>(st + L::kTile, st + 3 * L::kTile, st + 4 * L::kTile);\n"
+         "    for (int z = threadIdx.x * 16; z < L::kTile; z += blockDim.x * 16) {\n"
+         "      *reinterpret_cast<uint4*>(st + 2 * L::kTile + z) = make_uint4(0, 0, 0, 0);\n"
+         "      *reinterpret_cast<uint4*>(st + 4 * L::kTile + z) = make_uint4(0, 0, 0, 0);\n"
+         "    }\n"
+         "    fence_proxy_async();")]),
+    "K3 f32 P's column order not matched": ("attention_f32.cu", [
+        ("const int p = (r & ~7) | ((r & 1) << 2) | ((r & 7) >> 1);", "const int p = r;")]),
+    "K3 f32 uniform row's scale not zeroed": ("attention_f32.cu", [
+        ("const float sc = uniform ? 0.0f : scale * kLog2e;", "const float sc = scale * kLog2e;")]),
     # K5's f32 kernel: the scale, the last K step, the ragged rows, the
     # split (its x_lo product, its cluster sums), the widening and the
     # swizzle of the widened weight that the warpgroup MMA reads
@@ -423,8 +443,9 @@ SOURCE_FAULTS.update({
     # (both kernels), the dq kernel's last key tile left out, a term of the
     # split products dropped, the accumulators' column order not matched
     # (the design's stand-in for a quad shuffle: the B rows of P^T's products
-    # read in m16n8k8's own order), the streamed tiles' lo parts dropped by
-    # the block's split, a streamed tile read unswizzled
+    # read in m16n8k8's own order); and in the staging it shares with K3-f32
+    # (attn_f32.cuh): the streamed tiles' lo parts dropped by the block's
+    # split, a staged tile read unswizzled
     "K4 f32 delta dropped": ("attention_bwd_f32.cu", [
         ("pt[n][e] * (dst[n][e] - ((e & 1) ? dz.y : dz.x)) * scd", "pt[n][e] * dst[n][e] * scd"),
         ("p * (dp[n][e] - dl[e >> 1]) * scd", "p * dp[n][e] * scd")]),
@@ -438,16 +459,16 @@ SOURCE_FAULTS.update({
     "K4 f32 Pᵀ quad shuffle wrong": ("attention_bwd_f32.cu", [
         ("8 * j + 2 * tg, 8 * n + g)", "8 * j + tg, 8 * n + g)"),
         ("8 * j + 2 * tg + 1, 8 * n + g)", "8 * j + tg + 4, 8 * n + g)")]),
-    "K4 f32 streamed lo parts dropped": ("attention_bwd_f32.cu", [
+    "K4 f32 streamed lo parts dropped": ("attn_f32.cuh", [
         ("*reinterpret_cast<uint4*>(lo + o) = l;",
          "*reinterpret_cast<uint4*>(lo + o) = make_uint4(0, 0, 0, 0);")]),
-    "K4 f32 streamed tile read unswizzled": ("attention_bwd_f32.cu", [
+    "K4 f32 streamed tile read unswizzled": ("attn_f32.cuh", [
         ("((((c & 31) >> 2) ^ (r & 7)) << 4)", "(((c & 31) >> 2) << 4)")]),
 })
 # the --source-faults mode of each fault's source
 FAULT_MODES = {"conv_gemm.cuh": "--codec-kernels", "qdense.cu": "--int8-kernels",
                "attention_f32.cu": "--f32-kernels", "qdense_f32.cu": "--f32-kernels",
-               "attention_bwd_f32.cu": "--f32-kernels"}
+               "attention_bwd_f32.cu": "--f32-kernels", "attn_f32.cuh": "--f32-kernels"}
 
 
 class CheckFailed(SystemExit):
@@ -464,47 +485,54 @@ def rel_l2(torch, out, ref) -> float:
 
 
 def parent_f32_kernels(torch, checkout):
-    """K4-f32 and K5-f32 of another checkout, built from its
-    csrc/attention_bwd_f32.cu and csrc/qdense_f32.cu into the build
-    directory, with their wrappers' work as of the FFMA kernels (the parent of
-    the split-TF32 redesign): ``{"attention_bwd_f32": fn(q, k, v, mask, o,
-    lse, g), "int8_dense_f32": fn(x, q8, scale)}``, D % 4 == 0."""
+    """K3-f32 and K4-f32 of another checkout, built from its
+    csrc/attention_f32.cu and csrc/attention_bwd_f32.cu into the build
+    directory, with their wrappers' work as of the parent of the K3-f32
+    redesign (the FFMA K3-f32 and its D % 4 padding; K4-f32 with lse and
+    delta rows padded to a multiple of 4): ``{"attention_f32": fn(q, k, v,
+    mask) -> (o, lse), "attention_bwd_f32": fn(q, k, v, mask, o, lse, g)}``."""
     import ctypes
     import hashlib
 
     from edm_tts_tpu_torch.kernels.build import BUILD_DIR, build_sources, check_launch
+    from edm_tts_tpu_torch.ops.attention import _padded_rows, pad_depth
 
-    srcs = [checkout / "edm_tts_tpu_torch" / "csrc" / f for f in ("attention_bwd_f32.cu",
-                                                                  "qdense_f32.cu")]
+    srcs = [checkout / "edm_tts_tpu_torch" / "csrc" / f for f in ("attention_f32.cu",
+                                                                  "attention_bwd_f32.cu")]
     digest = hashlib.sha256(b"".join(s.read_bytes() for s in srcs)).hexdigest()[:16]
     lib = ctypes.CDLL(str(build_sources(srcs, BUILD_DIR / f"libparent_f32_{digest}.so")))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.edm_attention_f32.argtypes = [ptr] * 6 + [i32] * 5 + [ctypes.c_float, ptr]
     lib.edm_attention_bwd_f32.argtypes = [ptr] * 10 + [i32] * 5 + [ctypes.c_float, ptr]
-    lib.edm_int8_dense_f32.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
-    lib.edm_attention_bwd_f32.restype = lib.edm_int8_dense_f32.restype = ctypes.c_int
+    lib.edm_attention_f32.restype = lib.edm_attention_bwd_f32.restype = ctypes.c_int
 
     def stream():
         return torch.cuda.current_stream().cuda_stream
 
+    def fwd(q, k, v, mask):
+        b, tq, h, d = q.shape
+        dp = -(-d // 4) * 4
+        q, k, v = (pad_depth(x, dp).contiguous() for x in (q, k, v))
+        out = torch.empty_like(q)
+        lse = torch.empty((b * h, tq), dtype=torch.float32, device=q.device)
+        check_launch(lib.edm_attention_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), None if mask is None else mask.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), b, tq, k.shape[1], h, dp, d ** -0.5, stream()),
+            "parent edm_attention_f32")
+        return out[..., :d], lse
+
     def bwd(q, k, v, mask, o, lse, g):
         b, tq, h, d = q.shape
-        delta = (g * o).sum(-1).transpose(1, 2).contiguous()
+        lse_p, delta = _padded_rows(lse, (g * o).sum(-1), b, h, tq)
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
         check_launch(lib.edm_attention_bwd_f32(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-            None if mask is None else mask.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            None if mask is None else mask.data_ptr(), lse_p.data_ptr(), delta.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, tq, k.shape[1], h, d, d ** -0.5,
             stream()), "parent edm_attention_bwd_f32")
         return dq, dk, dv
 
-    def dense(x, q8, scale):
-        out = torch.empty((x.shape[0], q8.shape[1]), dtype=torch.float32, device=x.device)
-        check_launch(lib.edm_int8_dense_f32(
-            x.data_ptr(), q8.data_ptr(), scale.data_ptr(), out.data_ptr(), x.shape[0],
-            q8.shape[0], q8.shape[1], stream()), "parent edm_int8_dense_f32")
-        return out
-
-    return {"attention_bwd_f32": bwd, "int8_dense_f32": dense}
+    return {"attention_f32": fwd, "attention_bwd_f32": bwd}
 
 
 def kernel_phase(torch, ops, part: str | None = None, parent_front=None,
@@ -515,7 +543,7 @@ def kernel_phase(torch, ops, part: str | None = None, parent_front=None,
     K2's, with "f32" only the f32 kernels' cases (what ``--source-faults``
     needs). ``parent_front``: another
     checkout's K2 front (profile_decoder_block.parent_front), timed beside
-    this one's; ``parent_f32``: another checkout's K4-f32 and K5-f32
+    this one's; ``parent_f32``: another checkout's K3-f32 and K4-f32
     (parent_f32_kernels), timed beside these ("was_ms").
 
     Alphas are drawn U(0.5, 2), biases N(0, 0.5) and the int8 weights'
@@ -525,6 +553,9 @@ def kernel_phase(torch, ops, part: str | None = None, parent_front=None,
     import torch.nn.functional as F
 
     from edm_tts_tpu_torch.ops.attn_variants import BLOCK_Q, VARIANTS, attn_variant_reference
+    from edm_tts_tpu_torch.profile_attention_f32 import CASES as ATTENTION_F32_CASES
+    from edm_tts_tpu_torch.profile_attention_f32 import TRAIN_CASES as ATTENTION_TRAIN_CASES
+    from edm_tts_tpu_torch.profile_attention_f32 import work as attention_f32_work
     from edm_tts_tpu_torch.ops.decoder_block import phase_weights
     from edm_tts_tpu_torch.profile_attn_variants import SHAPE
     from edm_tts_tpu_torch.profile_attn_variants import work as variant_work
@@ -629,12 +660,14 @@ def kernel_phase(torch, ops, part: str | None = None, parent_front=None,
                                 **({} if was_ms is None else {"was_ms": was_ms})))
 
     # K3's and K5's f32 kernels (also under --f32-kernels): K3 at
-    # ATTENTION_F32_CASES with its LSE, K5 at every int8 case of one request
+    # ATTENTION_F32_CASES and ATTENTION_F32_EDGE_CASE with its LSE (and at
+    # ATTENTION_TRAIN_CASES below), K5 at every int8 case of one request
     # and of a served call, f32 activations. Faults: an operand rounded to
-    # bf16 or to TF32, and each kernel's own (mask, tail keys; scale, last K
-    # step). Library calls: SDPA on f32 inputs, f32 matmul on the dequantized
-    # weight (TF32 off for both). Bound: f32-accurate products at the
-    # split-TF32 rate (3xTF32 for K3, 2xTF32 for K5: its weight is exact).
+    # bf16 or to TF32, and each kernel's own (mask, tail keys, the uniform
+    # row's scale; scale, last K step). Library calls: SDPA on f32 inputs,
+    # f32 matmul on the dequantized weight (TF32 off for both). Bound:
+    # f32-accurate products at the split-TF32 rate (3xTF32 for K3, 2xTF32
+    # for K5: its weight is exact).
     for label, m, kdim, n in INT8_CASES + SERVED_INT8_CASES if part in (None, "f32") else ():
         x = normal(m, kdim)
         q8, scale = ops.quantize_weight(normal(kdim, n) * uniform(n, lo=0.5, hi=2.0))
@@ -649,16 +682,26 @@ def kernel_phase(torch, ops, part: str | None = None, parent_front=None,
                      x[:, :-16], q8[:-16], scale)},
                 (*int8_work(m, kdim, n, 4), 0, PEAK_2XTF32_FLOPS),
                 ("matmul f32-dequantized, TF32 off", lambda: torch.matmul(x, w_deq)),
-                tols=(F32_REL_L2_TOL, F32_MAX_ABS_TOL),
-                was=None if parent_f32 is None else (
-                    lambda: parent_f32["int8_dense_f32"](x, q8, scale)))
+                tols=(F32_REL_L2_TOL, F32_MAX_ABS_TOL))
         cases["int8_dense_f32"][-1].update(m=m, k=kdim, n=n,
                                            tile=ops.qdense.int8_dense_f32_tile(m, kdim, n, sms))
-    for label, (b, t, h, d, lens) in ATTENTION_F32_CASES if part in (None, "f32") else ():
-        q, k, v = (normal(b, t, h, d) for _ in range(3))
+
+    def key_mask(b, t, lens):
+        """None, or bool (B, T): per row a key length or the valid key ranges."""
+        if lens is None:
+            return None
+        pos = torch.arange(t, device=dev)
+        mask = torch.zeros(b, t, dtype=torch.bool, device=dev)
+        for row, keys in enumerate(lens):
+            for start, stop in ((0, keys),) if isinstance(keys, int) else keys:
+                mask[row] |= (pos >= start) & (pos < stop)
+        return mask
+
+    def attention_f32_case(label, q, k, v, mask):
+        b, t, h, d = q.shape
         pos = torch.arange(t, device=dev)[None]
-        mask = None if lens is None else pos < torch.tensor(lens, device=dev)[:, None]
-        valid = pos.expand(b, t) >= 0 if mask is None else mask
+        # the keys the kernel counts: a row without a valid key counts them all
+        valid = pos.expand(b, t) >= 0 if mask is None else mask | ~mask.any(-1, keepdim=True)
         tail = valid & (pos < t // 64 * 64)
 
         def plain_lse(q=q, k=k, v=v, mask=mask):
@@ -670,18 +713,39 @@ def kernel_phase(torch, ops, part: str | None = None, parent_front=None,
             faults["tail tile dropped"] = lambda: plain_lse(mask=tail)
         if mask is not None:
             faults["mask ignored"] = lambda: plain_lse(mask=None)
+        if not torch.equal(valid, pos.expand(b, t) >= 0 if mask is None else mask):
+            # a row without a valid key attended with the score scale
+            faults["uniform row's scale not zeroed"] = lambda: plain_lse(mask=valid)
         qt, kt, vt = (z.transpose(1, 2).contiguous() for z in (q, k, v))
         sdpa_mask = None if mask is None else mask[:, None, None, :]
         n_keys = int(valid.sum())  # summed over the batch rows
-        compare("attention_f32", f"{label} with LSE",
+        compare("attention_f32", f"{label} with LSE, block_q "
+                f"{ops.attention.attention_f32_query_tile(b, h, t, d, sms)}",
                 lambda: ops.flash_mha(q, k, v, mask=mask, return_lse=True), plain_lse, faults,
-                (4 * h * t * n_keys * d, 4 * (4 * b * t * h * d) + b * t + 4 * b * h * t,
-                 h * t * n_keys, PEAK_3XTF32_FLOPS),
+                (*attention_f32_work(b, t, h, d, n_keys), PEAK_3XTF32_FLOPS),
                 ("scaled_dot_product_attention f32", lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, attn_mask=sdpa_mask)),
-                tols=(F32_REL_L2_TOL, F32_MAX_ABS_TOL))
-    # K4's f32 kernel at the bf16 K4's cases (ATTENTION_TRAIN_CASES, f32
-    # inputs), from K3-f32's LSE; the plain version takes the plain LSE.
+                tols=(F32_REL_L2_TOL, F32_MAX_ABS_TOL),
+                was=None if parent_f32 is None else (
+                    lambda: parent_f32["attention_f32"](q, k, v, mask)))
+        out, lse = ops.flash_mha(q, k, v, mask=mask, return_lse=True)
+        again = ops.flash_mha(q, k, v, mask=mask, return_lse=True)
+        lse_err = (lse - ops.attention_lse_reference(q, k, mask=mask)).abs().max().item()
+        same = torch.equal(out, again[0]) and torch.equal(lse, again[1])
+        print(f"kernel attention_f32 {label}: LSE max abs err {lse_err:.4g} (tol "
+              f"{F32_LSE_ABS_TOL}); a second call equal to the bit: {same}", flush=True)
+        if not lse_err <= F32_LSE_ABS_TOL:
+            fail(f"{label}: K3-f32's LSE is off by {lse_err}, above {F32_LSE_ABS_TOL}")
+        if not same:
+            fail(f"{label}: K3-f32 gave another result on a second call")
+
+    for label, (b, t, h, d, lens) in (
+            ATTENTION_F32_CASES + (ATTENTION_F32_EDGE_CASE,) if part in (None, "f32") else ()):
+        q, k, v = (normal(b, t, h, d) for _ in range(3))
+        attention_f32_case(label, q, k, v, key_mask(b, t, lens))
+    # K3-f32 with its LSE and K4's f32 kernel at the bf16 K4's cases
+    # (ATTENTION_TRAIN_CASES, f32 inputs), K4-f32 from K3-f32's LSE; the
+    # plain version takes the plain LSE.
     # Faults: delta dropped, the mask ignored, the last query tile's dO
     # dropped, q rounded to TF32. Library call: SDPA's f32 backward (forward
     # and backward timed, the forward subtracted). Bound: the five products
@@ -689,8 +753,8 @@ def kernel_phase(torch, ops, part: str | None = None, parent_front=None,
     for label, (b, t, h, d, lens) in ATTENTION_TRAIN_CASES if part in (None, "f32") else ():
         q, k, v, g = (normal(b, t, h, d) for _ in range(4))
         n_keys = [t] * b if lens is None else list(lens)
-        mask = None if lens is None else (
-            torch.arange(t, device=dev)[None] < torch.tensor(lens, device=dev)[:, None])
+        mask = key_mask(b, t, lens)
+        attention_f32_case(label, q, k, v, mask)
         o, lse = ops.flash_mha(q, k, v, mask=mask, return_lse=True)
         lse_ref = ops.attention_lse_reference(q, k, mask=mask)
         g_cut = g.clone()
@@ -2617,8 +2681,9 @@ def main() -> int:
                              "10-argument edm_tconv_phase of before PR 8) to time beside this "
                              "one's in K2's cases")
     parser.add_argument("--parent-f32", default=None, metavar="DIR",
-                        help="another checkout of this repository whose FFMA K4-f32 and K5-f32 "
-                             "(parent_f32_kernels) to time beside this one's in their cases")
+                        help="another checkout of this repository (the parent of the K3-f32 "
+                             "redesign) whose K3-f32 and K4-f32 (parent_f32_kernels) to time "
+                             "beside this one's in their cases")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False; this smoke run needs an NVIDIA GPU")

@@ -12,12 +12,13 @@
 //   ds = p * (dO V^T - delta) * scale
 //   dq = ds K,   dk = ds^T Q
 //
-// Arithmetic: split TF32 ("3xTF32") on the tensor cores. Every operand is
-// split once into hi = tf32(x) and lo = tf32(x - hi), rounded to nearest
-// (mma.cuh, split_tf32), and every product is the three m16n8k8 TF32
-// products hi*hi + hi*lo + lo*hi into f32 accumulators: each product to
-// within ~2^-21 of an f32 one, where one TF32 product alone keeps ~2^-11.
-// p and ds stay f32 before their split (no bf16 rounding).
+// Arithmetic: split TF32 ("3xTF32") on the tensor cores, on the staging it
+// shares with K3-f32 (attn_f32.cuh). Every operand is split once into hi =
+// tf32(x) and lo = tf32(x - hi), rounded to nearest (mma.cuh, split_tf32),
+// and every product is the three m16n8k8 TF32 products hi*hi + hi*lo +
+// lo*hi into f32 accumulators: each product to within ~2^-21 of an f32 one,
+// where one TF32 product alone keeps ~2^-11. p and ds stay f32 before their
+// split (no bf16 rounding).
 //
 // What bounds it on the H100: five (T x T x D) products per (batch, head),
 // 10 * Tq * Tk * D FLOPs, run as three TF32 products each: the operations
@@ -65,8 +66,7 @@
 // through the plain version gives.
 #include <math.h>
 
-#include "attn_tile.cuh"
-#include "mma.cuh"
+#include "attn_f32.cuh"
 
 namespace edm {
 
@@ -84,7 +84,6 @@ struct BwdF32Warps {
   static constexpr int kOwnTiles = kOwnRows / 64;
 };
 constexpr int kF32BwdStages = 2;
-constexpr int kF32BoxBytes = kTileRows * 32 * 4;  // one box: 64 rows x 32 floats
 
 // The row stride of lse and delta as the kernels take them: Tq rounded up
 // to a multiple of 4 floats, so that every 64-query box of a row starts on
@@ -107,39 +106,7 @@ struct BwdF32Smem {
 
 // Element (r, c) of a staged 64-row tile.
 static __device__ __forceinline__ float tile_f32(const unsigned char* tile, int r, int c) {
-  return *reinterpret_cast<const float*>(tile + (c >> 5) * kF32BoxBytes + r * 128 +
-                                         ((((c & 31) >> 2) ^ (r & 7)) << 4) + (c & 3) * 4);
-}
-
-// Rows t0 .. t0 + 64 n - 1 of a (B, T, H, D) f32 tensor as n 64-row tiles of
-// DP / 32 boxes each, counted on bar.
-template <int DP>
-static __device__ __forceinline__ void load_tiles(uint32_t dst, const CUtensorMap* map,
-                                                  uint32_t bar, int h, int t0, int b, int n) {
-  for (int i = 0; i < n; ++i)
-#pragma unroll
-    for (int j = 0; j < DP / 32; ++j)
-      tma_load_4d(dst + (i * DP / 32 + j) * kF32BoxBytes, map, bar, 32 * j, h,
-                  t0 + i * kTileRows, b);
-}
-
-// A stage's two streamed tiles split once for the whole block: hi over the
-// copied values, lo into the stage's lo tiles (the same layout), so that the
-// warps load split fragments instead of each splitting them again. The
-// fence orders these writes before the copy engine refills the stage.
-static __device__ __forceinline__ void split_stage(unsigned char* hi, unsigned char* lo,
-                                                   int bytes) {
-  for (int o = threadIdx.x * 16; o < bytes; o += blockDim.x * 16) {
-    const float4 x = *reinterpret_cast<const float4*>(hi + o);
-    uint4 h, l;
-    split_tf32(x.x, h.x, l.x);
-    split_tf32(x.y, h.y, l.y);
-    split_tf32(x.z, h.z, l.z);
-    split_tf32(x.w, h.w, l.w);
-    *reinterpret_cast<uint4*>(hi + o) = h;
-    *reinterpret_cast<uint4*>(lo + o) = l;
-  }
-  fence_proxy_async();
+  return *reinterpret_cast<const float*>(tile + f32_offset<kTileRows>(r, c));
 }
 
 // c[n] += A B[n] from split fragments for the n < n_use tiles: hi*hi, hi*lo
@@ -165,8 +132,7 @@ static __device__ __forceinline__ void mma3(float (*c)[4], const uint32_t ah[4],
 // matrix: the TF32 fragment layout): the lane gives (row, col), col % 4 ==
 // 0, of a row of its matrix (lanes 8i .. 8i + 7, matrix i).
 static __device__ __forceinline__ void ldsm_f32(uint32_t r[4], uint32_t tile, int row, int col) {
-  ldmatrix_x4(r, tile + (col >> 5) * kF32BoxBytes + row * 128 +
-                     ((((col & 31) >> 2) ^ (row & 7)) << 4));
+  ldmatrix_x4(r, tile + f32_offset<kTileRows>(row, col));
 }
 
 // acc (16 x 64) = A B^T: A the warp's 16 rows of the own 64-row tile `own`
@@ -236,25 +202,6 @@ static __device__ __forceinline__ void mm_pt(float acc[DP / 8][4], const float p
   for (int n = 0; n < DP / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] += sum[n][e];
-}
-
-// A warp's 16 x DP accumulators to rows [t0, t0 + 16) of a (B, T, H, D) f32
-// tensor (rows g and g + 8 of each thread; columns past D not written).
-template <int DP>
-static __device__ __forceinline__ void store_rows_f32(float* __restrict__ dst,
-                                                      const float acc[DP / 8][4], int b, int h,
-                                                      int t0, int T, int H, int D, int g,
-                                                      int tg) {
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int t = t0 + g + 8 * r;
-    if (t >= T) continue;
-    float* row = dst + (((size_t)b * T + t) * H + h) * D + 2 * tg;
-#pragma unroll
-    for (int n = 0; n < DP / 8; ++n)
-      if (n * 8 + 2 * tg < D)
-        *reinterpret_cast<float2*>(row + n * 8) = make_float2(acc[n][2 * r], acc[n][2 * r + 1]);
-  }
 }
 
 template <int DP>

@@ -1,5 +1,6 @@
-// Tile staging of the attention kernels K3 (attention.cu), K4
-// (attention_bwd.cu, and at f32 attention_bwd_f32.cu) and K6
+// Tile staging of the attention kernels K3 (attention.cu, and at f32
+// attention_f32.cu), K4 (attention_bwd.cu, and at f32 attention_bwd_f32.cu;
+// the f32 pair's shared staging is in attn_f32.cuh) and K6
 // (attn_variants.cu): TMA copies of 64-row tiles of a (B, T, H, D) bf16 or
 // f32 tensor into swizzled shared memory, completed on mbarriers, and the
 // scan of the key mask into 64-key tiles. K5 (qdense.cu, qdense_f32.cu) and

@@ -1,8 +1,9 @@
 // Register-level helpers of the attention kernels (attention.cu, K3;
 // attention_bwd.cu, K4; attn_variants.cu, K6): mma.sync m16n8k16 bf16 with
 // f32 accumulation, fragments by ldmatrix, the MUFU exponential and bf16
-// packing; and for the f32 kernels (attention_bwd_f32.cu, qdense_f32.cu)
-// mma.sync m16n8k8 TF32 and the split of an f32 value into two TF32 parts.
+// packing; and for the f32 kernels mma.sync m16n8k8 TF32
+// (attention_bwd_f32.cu) and the split of an f32 value into two TF32 parts
+// (attention_f32.cu, attention_bwd_f32.cu, qdense_f32.cu).
 //
 // Fragment layout of m16n8k16 (g = lane / 4, tg = lane % 4):
 //   A (16 x 16, row-major): a0 (row g, k 2tg..2tg+1), a1 (row g+8, same k),

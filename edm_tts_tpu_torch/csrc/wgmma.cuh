@@ -1,8 +1,8 @@
 // Warpgroup matrix multiply (wgmma) helpers for Hopper (sm_90a): products
 // of a 64-row A tile held in registers (WgmmaRS, K5: qdense.cu; WgmmaTF32,
-// K5 at f32: qdense_f32.cu) or in shared memory (WgmmaSS, K1 and K2:
-// conv_gemm.cuh) with a B tile in shared memory, accumulated in f32
-// registers.
+// K5 and K3 at f32: qdense_f32.cu, attention_f32.cu) or in shared memory
+// (WgmmaSS, K1 and K2: conv_gemm.cuh) with a B tile in shared memory,
+// accumulated in f32 registers.
 //
 // WgmmaRS<N>::run(d, a, desc) issues wgmma.mma_async m64nNk16 bf16 x bf16
 // -> f32, d += A (64 x 16) * B (16 x N). Its operands:
@@ -32,7 +32,9 @@
 // g, k tg; a[1] row g+8, k tg; a[2] row g, k tg+4; a[3] row g+8, k tg+4),
 // desc as WgmmaRS's (N rows of 128 bytes, 32 TF32 k values each, 128-byte
 // swizzle; the j-th 8-deep slice at +32 bytes), d as above; accumulate 0
-// writes d = A * B instead (scale-d false).
+// writes d = A * B instead (scale-d false). WgmmaTF32SS64::run(d, adesc,
+// bdesc, accumulate) is the m64n64k8 TF32 product with A read from shared
+// memory too (64 rows of 128 bytes, K-major, as desc).
 // The product runs asynchronously: wgmma_fence orders register writes
 // before it, wgmma_commit closes a group of products, wgmma_wait<n> waits
 // until at most n groups are in flight. Registers a product reads or
@@ -166,6 +168,22 @@ template <int N>
 struct WgmmaTF32;
 
 template <>
+struct WgmmaTF32<32> {
+  static __device__ __forceinline__ void run(float (&d)[16], const uint32_t (&a)[4],
+                                             uint64_t desc, uint32_t accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+  }
+};
+
+template <>
 struct WgmmaTF32<64> {
   static __device__ __forceinline__ void run(float (&d)[32], const uint32_t (&a)[4],
                                              uint64_t desc, uint32_t accumulate) {
@@ -206,6 +224,27 @@ struct WgmmaTF32<128> {
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+  }
+};
+
+// d (64 x 64) += A B, TF32, both operands K-major in shared memory (adesc:
+// 64 rows, bdesc: 64 rows, each as WgmmaTF32's desc); accumulate 0 writes d
+// = A * B instead.
+struct WgmmaTF32SS64 {
+  static __device__ __forceinline__ void run(float (&d)[32], uint64_t adesc, uint64_t bdesc,
+                                             uint32_t accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(adesc), "l"(bdesc), "r"(accumulate));
   }
 };
 

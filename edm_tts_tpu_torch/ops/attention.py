@@ -23,13 +23,15 @@ K3's query tile (64 or 128 rows per block) is ``attention_query_tile``,
 or the caller's ``block_q``.
 
 f32 q, k, v on the card go to K3's and K4's f32 kernels
-(csrc/attention_f32.cu: f32 products on the FMA units; csrc/attention_bwd_f32.cu:
-products to f32 accuracy as three TF32 products of split operands on the
-tensor cores; f32 outputs, as the Pallas kernels keep the input dtype);
-they take D % 4 == 0 (the wrappers zero-pad other D; K4-f32 pads to a
-multiple of 8 inside, by the copy engine's zero fill). ``FlashMHA`` joins
-them as it joins the bf16 pair, so f32 training differentiates f32
-attention on the card as the JAX trainers do with ``bf16: false``.
+(csrc/attention_f32.cu and csrc/attention_bwd_f32.cu: products to f32
+accuracy as three TF32 products of split operands on the tensor cores; f32
+outputs, as the Pallas kernels keep the input dtype); they take D % 4 == 0
+(the wrappers zero-pad other D; the kernels pad to DP 32 or 64 inside, by
+the copy engine's zero fill). K3-f32's query tile (64 or 128 rows per
+block: one or two warpgroups) is ``attention_f32_query_tile``, or the
+caller's ``block_q``. ``FlashMHA`` joins them as it joins the bf16 pair,
+so f32 training differentiates f32 attention on the card as the JAX
+trainers do with ``bf16: false``.
 """
 
 from __future__ import annotations
@@ -64,6 +66,32 @@ def attention_query_tile(b: int, h: int, tq: int, sms: int = H100_SMS,
                              f"got {block_q}")
         return block_q
     return 128 if b * h * -(-tq // 128) >= 2 * sms else 64
+
+
+# K3-f32's query tiles (rows per block: 1 or 2 warpgroups of 64 rows)
+QUERY_TILES_F32 = (64, 128)
+
+
+def attention_f32_query_tile(b: int, h: int, tq: int, d: int, sms: int = H100_SMS,
+                             block_q: int | None = None) -> int:
+    """Query rows per block of K3-f32 for a (B, Tq, H, D) launch: ``block_q``
+    when given (one of QUERY_TILES_F32, else ValueError); otherwise fitted
+    to ``profile_attention_f32``'s sweep of both tiles at the f32 path's
+    shapes (H100 80GB HBM3, 700 W). At D > 32 a block (193 or 225 KB of
+    shared memory) is alone on its SM, and two warpgroups sharing each split
+    K/V tile took 0.63-0.84x the time of one for the same rows: 128 rows,
+    unless the 64-row grid, B * H * ceil(Tq / 64) blocks, fits on the SMs
+    in one wave (HuBERT's B1 T150 and T500: one wave of 64-row blocks beat
+    one of 128 by 14-15 %). At D <= 32 (97 or 113 KB, two 64-row blocks an
+    SM) K3's rule: 128 when that grid puts two blocks on every SM, else 64."""
+    if block_q is not None:
+        if block_q not in QUERY_TILES_F32:
+            raise ValueError(f"flash_mha: block_q must be one of {QUERY_TILES_F32} or None at "
+                             f"f32, got {block_q}")
+        return block_q
+    if d > 32:
+        return 64 if b * h * -(-tq // 64) <= sms else 128
+    return attention_query_tile(b, h, tq, sms)
 
 
 def padded_depth(d: int) -> int:
@@ -181,18 +209,18 @@ def flash_mha(
     """Attention through K3 on the card, ``mha_reference`` on the CPU.
 
     On CUDA: q/k/v bf16 or f32 (K3's f32 kernel, output f32) contiguous
-    ``(B, T, H, D)`` with ``D <= 64``; ``block_q`` is K3's bf16 tile. With
-    ``return_lse`` also returns the f32 ``(B*H, T_q)`` LSE. The output is
-    not attached to autograd; ``mha`` is the differentiable entry point.
-    K3 takes ``attention_query_tile``'s query rows per block for this card;
-    ``block_q`` (64 or 128) forces one, any other value raises. The CPU
-    path computes the same function at any tile and ignores it.
+    ``(B, T, H, D)`` with ``D <= 64``. With ``return_lse`` also returns the
+    f32 ``(B*H, T_q)`` LSE. The output is not attached to autograd; ``mha``
+    is the differentiable entry point. K3 takes ``attention_query_tile``'s
+    query rows per block for this card, K3-f32 ``attention_f32_query_tile``'s;
+    ``block_q`` (64 or 128) forces one, any other value raises. The CPU path
+    computes the same function at any tile and ignores it.
     """
     if not q.is_cuda:
         out = mha_reference(q, k, v, mask=mask)
         return (out, attention_lse_reference(q, k, mask=mask)) if return_lse else out
     if q.dtype == torch.float32:
-        return _flash_mha_f32(q, k, v, mask, return_lse)
+        return _flash_mha_f32(q, k, v, mask, return_lse, block_q)
     b, tq, h, d = q.shape
     tk = k.shape[1]
     _check_qkv("flash_mha", q, k, v)
@@ -213,7 +241,7 @@ def flash_mha(
     return (out, lse) if return_lse else out
 
 
-def _flash_mha_f32(q, k, v, mask, return_lse: bool):
+def _flash_mha_f32(q, k, v, mask, return_lse: bool, block_q: int | None = None):
     """K3's f32 kernel: q, k, v contiguous f32 ``(B, T, H, D)``, D <= 64."""
     b, tq, h, d = q.shape
     tk = k.shape[1]
@@ -224,13 +252,14 @@ def _flash_mha_f32(q, k, v, mask, return_lse: bool):
         raise ValueError(f"flash_mha: shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)} (need matching B, H, D <= 64)")
     mask, mask_ptr = _mask_ptr("flash_mha", mask, b, tk, q.device)
+    block_q = attention_f32_query_tile(b, h, tq, d, sm_count(q.device.index or 0), block_q)
     dp = -(-d // 4) * 4
     q, k, v = (_aligned(pad_depth(x, dp)) for x in (q, k, v))
     out = torch.empty_like(q)
     lse = torch.empty((b * h, tq), dtype=torch.float32, device=q.device) if return_lse else None
     err = library().edm_attention_f32(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(),
-        None if lse is None else lse.data_ptr(), b, tq, tk, h, dp, d ** -0.5,
+        None if lse is None else lse.data_ptr(), b, tq, tk, h, dp, block_q, d ** -0.5,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     check_launch(err, "flash_mha")

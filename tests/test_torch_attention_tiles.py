@@ -5,7 +5,8 @@ K3 and K4 (edm_tts_tpu_torch/csrc/attention.cu, attention_bwd.cu) copy
 16-byte units, so they take a head depth D % 8 == 0; for any other D the
 wrappers zero-pad q, k, v (and o, dO) to the next multiple of 8, scale the
 scores by the true D and slice the outputs. K3's query tile (64 or 128 rows
-per block) is a pure function of the launch's B, H and Tq. Both rules run
+per block) is a pure function of the launch's B, H and Tq, and K3-f32's
+(csrc/attention_f32.cu; 64 or 128 rows) of B, H, Tq and D. The rules run
 here on the plain versions, which take the padded tensors as the kernels
 do; the padded path is also held against the JAX package's reference
 attention and its gradient.
@@ -25,6 +26,8 @@ import torch
 from edm_tts_tpu.ops.attention import mha_reference as j_mha_reference
 from edm_tts_tpu_torch.ops.attention import (
     H100_SMS,
+    QUERY_TILES_F32,
+    attention_f32_query_tile,
     attention_lse_reference,
     attention_query_tile,
     flash_mha_bwd_reference,
@@ -61,6 +64,36 @@ def test_query_tile_needs_two_blocks_per_sm_at_128_rows():
     assert attention_query_tile(1, 8, 4096) == 64
     for b, h, tq in ((1, 1, 1), (3, 5, 777), (64, 16, 2500)):
         assert attention_query_tile(b, h, tq) in (64, 128)
+
+
+@pytest.mark.parametrize("b,h,tq,d,want", [
+    (1, 16, 150, 64, 64),    # HuBERT on a 3 s prompt: 48 blocks of 64 rows, one wave
+    (1, 16, 500, 64, 64),    # HuBERT on a 10 s prompt: 128 blocks of 64 rows
+    (4, 16, 500, 64, 128),   # HuBERT's masked batch
+    (1, 8, 604, 24, 64),     # the f32 t2s canvas
+    (1, 16, 650, 64, 128),   # the f32 s2a: 176 blocks of 64 rows, two waves
+    (1, 16, 1250, 64, 128),
+    (8, 16, 768, 64, 128),   # the f32 s2a training micro-batch
+    (4, 8, 701, 24, 64),     # the ragged batch: 192 blocks at 128 rows
+    (4, 8, 1382, 24, 128),   # the t2s canvas batch: 352 blocks at 128 rows
+])
+def test_f32_query_tile_at_the_ports_shapes(b, h, tq, d, want):
+    assert attention_f32_query_tile(b, h, tq, d) == want
+
+
+def test_f32_query_tile_rules():
+    # D > 32: 64 rows while their grid (B * H * ceil(Tq / 64)) fits in one wave
+    assert attention_f32_query_tile(1, 16, 500, 64, sms=128) == 64
+    assert attention_f32_query_tile(1, 16, 500, 64, sms=127) == 128
+    assert attention_f32_query_tile(1, 16, 500, 40, sms=127) == 128
+    # D <= 32: K3's rule
+    for b, h, tq in ((4, 8, 1382), (1, 8, 4097), (1, 8, 4096), (3, 5, 777)):
+        for d in (4, 24, 32):
+            assert attention_f32_query_tile(b, h, tq, d) == attention_query_tile(b, h, tq)
+    for block_q in QUERY_TILES_F32:
+        assert attention_f32_query_tile(1, 1, 1, 64, block_q=block_q) == block_q
+    with pytest.raises(ValueError):
+        attention_f32_query_tile(1, 1, 1, 64, block_q=16)
 
 
 @pytest.mark.parametrize("d,want", [(1, 8), (8, 8), (20, 24), (24, 24), (40, 40), (44, 48),

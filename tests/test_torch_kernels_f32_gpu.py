@@ -5,10 +5,13 @@ machine (no jax there, so the suite's conftest cannot load):
 
     python3 -m pytest --noconftest -m gpu tests/test_torch_kernels_f32_gpu.py
 
-K3 at f32 (csrc/attention_f32.cu) at the shapes of the f32 path: HuBERT-large
-(H16 D64, B1 T150-500 and B4 with the key mask), the t2s canvas (H8 D24,
-masked, ragged B4) and the s2a (H16 D64 up to T1250), a batch row with no
-valid key, a depth that is not a multiple of 4, and its LSE. K4 at f32
+K3 at f32 (csrc/attention_f32.cu, split TF32 on the tensor cores) at the
+shapes of the f32 path: HuBERT-large (H16 D64, B1 T150-500 and B4 with the
+key mask), the t2s canvas (H8 D24, masked, ragged B4) and the s2a (H16 D64
+up to T1250); at D 4, 12, 20 (not a multiple of 4), 32 and 40, Tq not a
+multiple of any query tile, a mask that leaves a wholly masked key tile
+between valid ones, a batch row with no valid key, each query tile the
+wrapper can pick, and its LSE, bit-equal from run to run. K4 at f32
 (csrc/attention_bwd_f32.cu, split TF32 on the tensor cores) at the bf16
 K4's cases (the s2a training micro-batch, a ragged batch, the masked t2s
 canvas), at depths the kernel pads inside (D 20, 24, 12, 36), bit-equal
@@ -76,8 +79,21 @@ def tf32(x):
     return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
 
 
+def _key_mask(b, t, lens, dev):
+    """None, or bool (B, T): per row a key length or a tuple of valid
+    (start, stop) key ranges."""
+    if lens is None:
+        return None
+    pos = torch.arange(t, device=dev)
+    mask = torch.zeros(b, t, dtype=torch.bool, device=dev)
+    for row, keys in enumerate(lens):
+        for start, stop in ((0, keys),) if isinstance(keys, int) else keys:
+            mask[row] |= (pos >= start) & (pos < stop)
+    return mask
+
+
 ATTENTION_CASES = (
-    # (B, T, H, D, key lengths or None)
+    # (B, T, H, D, per row a key length or valid key ranges; or None)
     (1, 150, 16, 64, None),          # HuBERT, a 3 s prompt
     (1, 500, 16, 64, None),          # HuBERT, a 10 s prompt
     (4, 500, 16, 64, (150, 275, 400, 500)),  # HuBERT, a masked batch
@@ -86,6 +102,12 @@ ATTENTION_CASES = (
     (1, 650, 16, 64, None),          # s2a
     (1, 1250, 16, 64, (1199,)),
     (2, 77, 4, 20, (77, 3)),         # D not a multiple of 4, a short row
+    (2, 90, 3, 4, (90, 41)),         # D 4: one k-step
+    (1, 333, 4, 12, None),           # D 12; Tq not a multiple of any query tile
+    (2, 200, 4, 32, (200, 130)),     # D 32: all of DP 32
+    (2, 261, 4, 40, (261, 190)),     # D 40: DP 64, the k-steps past D skipped
+    # keys 128-191 of row 0 wholly masked between valid ones
+    (2, 300, 4, 64, (((0, 70), (200, 260)), 300)),
 )
 
 
@@ -93,9 +115,7 @@ ATTENTION_CASES = (
 def test_attention_f32_matches_plain(dev, b, t, h, d, lens):
     g = torch.Generator(device=dev).manual_seed(t + d)
     q, k, v = (torch.randn(b, t, h, d, generator=g, device=dev) for _ in range(3))
-    mask = None
-    if lens is not None:
-        mask = torch.arange(t, device=dev)[None] < torch.tensor(lens, device=dev)[:, None]
+    mask = _key_mask(b, t, lens, dev)
     reset_launches()
     out, lse = ops.flash_mha(q, k, v, mask=mask, return_lse=True)
     assert f32_launches["attention_f32"] == 1 and launches["attention"] == 0
@@ -115,6 +135,25 @@ def test_attention_f32_matches_plain(dev, b, t, h, d, lens):
     assert (lse - lse_ref).abs().max().item() <= LSE_ABS_TOL
     again = ops.flash_mha(q, k, v, mask=mask)
     assert torch.equal(again, out)  # deterministic
+
+
+@pytest.mark.parametrize("block_q", ops.attention.QUERY_TILES_F32)
+@pytest.mark.parametrize("d", [24, 64])
+def test_attention_f32_every_query_tile(dev, block_q, d):
+    """Each query tile K3-f32's wrapper can pick (2, 4 or 8 warps a block)
+    at DP 32 and 64, with a masked ragged batch whose Tq is a multiple of
+    none of them; faults: Q and K rounded to TF32, the mask ignored."""
+    g = torch.Generator(device=dev).manual_seed(block_q + d)
+    q, k, v = (torch.randn(2, 301, 4, d, generator=g, device=dev) for _ in range(3))
+    mask = _key_mask(2, 301, (301, 117), dev)
+    out, lse = ops.flash_mha(q, k, v, mask=mask, return_lse=True, block_q=block_q)
+    ref = ops.mha_reference(q, k, v, mask=mask)
+    _check(out, ref, [("tf32 q and k", ops.mha_reference(tf32(q), tf32(k), v, mask=mask)),
+                      ("mask ignored", ops.mha_reference(q, k, v))])
+    lse_ref = ops.attention_lse_reference(q, k, mask=mask)
+    assert (lse - lse_ref).abs().max().item() <= LSE_ABS_TOL
+    again = ops.flash_mha(q, k, v, mask=mask, return_lse=True, block_q=block_q)
+    assert torch.equal(again[0], out) and torch.equal(again[1], lse)
 
 
 def test_attention_f32_row_without_valid_keys(dev):
