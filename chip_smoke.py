@@ -140,7 +140,27 @@ Phases, each reported on its own line:
      CLI's launches checked, the shards' shapes and ranges), then one step
      of the s2a recipe on the shards read by run_s2a.code_batch_iterator;
      and the k-means fit at the CLI's default size (1,024,000 x 1024 f32
-     seeded frames), its inertia never rising (KMEANS_INERTIA_RISE_TOL).
+     seeded frames), its inertia never rising (KMEANS_INERTIA_RISE_TOL);
+ 14. codec GAN training (k): ``python -m edm_tts_tpu_torch.train.run_codec``
+     on configs/dac/train_config.yaml (CODEC_RECIPE: the full generator and
+     discriminators, B32 x 0.38 s, f32 with TF32 off) over seeded
+     LibriLight-layout books, CODEC_TRAIN_STEPS steps with one eval, one
+     save and the best generator exported, the trainer's restore of that
+     checkpoint checked in this process (G, D and both optimizers as saved),
+     then resumed to CODEC_RESUME_STEPS; prints each step's losses and the
+     device time of each phase (the generator's forward, the D step, the G
+     step, the optimizers), the median step, segments per second and peak
+     memory; fails on a non-finite loss or any kernel launch in the f32
+     runs. Then the export loaded in bf16 (``load_codec``) round-trips a
+     seeded 2 s clip through K1 and K2 (24 and 2 launches), held against
+     the plain versions, and the gradient of a loss on its encoder latents
+     and decoded audio through K1 and K2 under autograd (backward: the plain
+     composition's VJP) is held against the same model through the plain
+     versions (the flattened gradient, CODEC_GRAD_REL_L2_TOL) and, tensor by
+     tensor, against the same model's f32 gradient (no farther than the
+     plain bf16 composition, CODEC_GRAD_NOISE_FACTOR), a planted fault of
+     K1's backward outside; K1 also at the clip's 24 unit shapes and K2 at
+     its two blocks in phase 3.
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
 There is no CPU fallback: without a CUDA device the script fails.
@@ -285,6 +305,71 @@ DUMP_BATCH = 8
 # converged run's sum by ~1e-7 relative. Set before the first run.
 KMEANS_INERTIA_RISE_TOL = 1e-5
 KMEANS_K, KMEANS_DIM, KMEANS_FRAMES_PER_CLUSTER = 1024, 1024, 1000
+# (k): codec GAN training through ``python -m edm_tts_tpu_torch.train.run_codec``
+# on a copy of configs/dac/train_config.yaml (CODEC_RECIPE; the card's machine
+# has no PyYAML, so the script carries the recipe, pinned equal to the file by
+# tests/test_torch_gan.py, and writes it as JSON) cut to CODEC_TRAIN_STEPS
+# steps with one eval and one save at the last, then resumed to
+# CODEC_RESUME_STEPS; its data: LibriLight-layout seeded books, the recipe's
+# 16 held-out windows (CODEC_VAL_BOOK_SECONDS each) and CODEC_TRAIN_BOOKS
+# windows of 60 s (157 segments of 0.38 s each)
+CODEC_TRAIN_STEPS, CODEC_RESUME_STEPS = 4, 6
+CODEC_VAL_BOOK_SECONDS = 5.5
+CODEC_TRAIN_BOOKS = 2
+CODEC_RECIPE = {
+    "output_dir": "exp/edm_tts/dac",
+    "generator_args": {"sample_rate": 16000, "encoder_dim": 64, "encoder_rates": [2, 4, 5, 8],
+                       "decoder_dim": 1536, "decoder_rates": [8, 5, 4, 2], "n_codebooks": 12,
+                       "codebook_size": 1024, "codebook_dim": 8, "quantizer_dropout": 0.5},
+    "discriminator_args": {"sample_rate": 16000, "rates": [], "periods": [2, 3, 5, 7, 11],
+                           "fft_sizes": [2048, 1024, 512],
+                           "bands": [[0.0, 0.1], [0.1, 0.25], [0.25, 0.5], [0.5, 0.75],
+                                     [0.75, 1.0]]},
+    "gen_optimizer_args": {"lr": 0.0001, "betas": [0.8, 0.99]},
+    "disc_optimizer_args": {"lr": 0.0001, "betas": [0.8, 0.99]},
+    "gen_scheduler_args": {"gamma": 0.999996},
+    "disc_scheduler_args": {"gamma": 0.999996},
+    "waveform_args": None,
+    "multi_scale_stft_args": None,
+    "mel_spectrogram_args": {"n_mels": [5, 10, 20, 40, 80, 160, 320],
+                             "window_lengths": [32, 64, 128, 256, 512, 1024, 2048],
+                             "mel_fmin": [0, 0, 0, 0, 0, 0, 0], "mel_fmax": [None] * 7,
+                             "power": 1.0, "clamp_eps": 1.0e-5, "mag_weight": 0.0},
+    "lambdas": {"mel/loss": 15.0, "adv/feat_loss": 2.0, "adv/gen_loss": 1.0,
+                "vq/commitment_loss": 0.25, "vq/codebook_loss": 1.0},
+    "preprocessing_only": False,
+    "dataset_args": {"path": "librilight", "name": "all", "data_dir": "data/libri-light/unlab"},
+    "training_segment_length": 0.38,
+    "silence_threshold": -40,
+    "volume_normalize": -16,
+    "validation_segment_length": 5.0,
+    "validation_split": 16,
+    "shuffle_buffer_size": 10000,
+    "seed": 42,
+    "per_device_train_batch_size": 32,
+    "max_steps": 100000,
+    "save_steps": 10000,
+    "eval_steps": 1000,
+    "logging_steps": 100,
+}
+# (k): the exported codec's bf16 round trip and the K1/K2 gradient check run
+# on one seeded clip of this length (100 frames)
+CODEC_CLIP_SECONDS = 2.0
+# (k): K1 and K2 under autograd (the kernel's forward, the plain
+# composition's VJP as the backward) against the same bf16 model with the
+# plain versions swapped in: the flattened gradient's relative l2, K3+K4's
+# TRAIN_GRAD_REL_L2_TOL (set before the first run, which measured 0.0141).
+# That run also held each tensor to 0.02, and measured
+# 0.0254 at worst (median 0.013): a noise-floor run then put the plain bf16
+# composition itself 0.0306 at worst from the same model's f32 gradient
+# (median 0.0138, flattened 0.0137; kernels 0.0271, 0.0127, 0.0125). So
+# each tensor is held to the f32 gradient instead: the kernel path's
+# distance at most CODEC_GRAD_NOISE_FACTOR times the plain bf16
+# composition's plus CODEC_GRAD_NOISE_FLOOR. A planted fault of K1's
+# backward (its recomputation with alpha2 = 1) must land outside.
+CODEC_GRAD_REL_L2_TOL = 0.02
+CODEC_GRAD_NOISE_FACTOR = 2.0
+CODEC_GRAD_NOISE_FLOOR = 2e-3
 
 KERNELS = {
     "resunit": dict(source="edm_tts_tpu_torch/csrc/resunit.cu",
@@ -568,7 +653,8 @@ def kernel_phase(torch, ops, part: str | None = None, parent_front=None,
     from edm_tts_tpu_torch.profile_resunit import ENCODER_CASES
     from edm_tts_tpu_torch.profile_resunit import ONE_ROW_CASES as ONE_ROW_RESUNIT_CASES
     from edm_tts_tpu_torch.profile_resunit import SERVED_CASES as SERVED_RESUNIT_CASES
-    from edm_tts_tpu_torch.profile_resunit import encoder_units, resunit_work
+    from edm_tts_tpu_torch.profile_decoder_block import decoder_blocks
+    from edm_tts_tpu_torch.profile_resunit import decoder_units, encoder_units, resunit_work
     from edm_tts_tpu_torch.profile_tokenization import PROMPT_SECONDS, encoder_samples
     from edm_tts_tpu_torch.utils.devtime import (PEAK_2XTF32_FLOPS, PEAK_3XTF32_FLOPS,
                                                   bound, median_ms)
@@ -931,9 +1017,13 @@ def kernel_phase(torch, ops, part: str | None = None, parent_front=None,
             max(encoder_samples(s_) for s_ in BATCH_PROMPT_SECONDS), len(BATCH_PROMPT_SECONDS))
     # and (j)'s dump: the encoder's 12 units on a batch of 8 windows of 60 s
     dump_cases = encoder_units(encoder_samples(DUMP_WINDOW_SECONDS, 16000), DUMP_BATCH)
+    # and (k)'s exported codec: its 12 encoder and 12 decoder units on one
+    # clip of CODEC_CLIP_SECONDS (the round trip and the gradient check)
+    clip_frames = int(CODEC_CLIP_SECONDS * 50)
+    codec_clip_cases = encoder_units(clip_frames * 320, 1) + decoder_units(clip_frames, 1)
     k1_cases = RESUNIT_CASES + ENCODER_CASES + (
         SERVED_RESUNIT_CASES + ONE_ROW_RESUNIT_CASES + tokenize_cases + dump_cases
-        if part is None else ())
+        + codec_clip_cases if part is None else ())
     for label, b, t, c, d in k1_cases if part in (None, "codec") else ():
         x = normal(b, t, c).to(bf16)
         p = resunit_params(c)
@@ -961,7 +1051,9 @@ def kernel_phase(torch, ops, part: str | None = None, parent_front=None,
     # column tile against the front's bound, the parent checkout's front
     # (--parent) and cuDNN's conv_transpose1d on the snake'd input
     # (channels first, layout changes untimed).
-    for label, b, t, cin, cout, s in DECODER_BLOCK_CASES if part in (None, "codec") else ():
+    # and (k)'s two K2 blocks on the clip's 100 frames (not under --codec-kernels)
+    k2_cases = DECODER_BLOCK_CASES + (decoder_blocks(clip_frames, 1) if part is None else ())
+    for label, b, t, cin, cout, s in k2_cases if part in (None, "codec") else ():
         x = normal(b, t, cin).to(bf16)
         a0 = alpha(cin)
         lim = (2 * s * cout) ** -0.5
@@ -1351,23 +1443,26 @@ def served_path(torch, t2s, s2a, semantic, dev, smi: str, held: set, held_k1: se
 
 @contextlib.contextmanager
 def plain_versions(ops):
-    """The codec's residual units and HuBERT's attention through their plain
-    versions for the block (K1 and K3 swapped out where the models call
-    them); fails if a kernel launches inside it."""
+    """The codec's residual units and decoder blocks and HuBERT's attention
+    through their plain versions for the block (K1, K2 and K3 swapped out
+    where the models call them); fails if a kernel launches inside it."""
+    import edm_tts_tpu_torch.models.codec.decoder as decoder_mod
     import edm_tts_tpu_torch.models.codec.layers as layers_mod
     import edm_tts_tpu_torch.models.hubert.model as hubert_mod
     from edm_tts_tpu_torch.kernels import all_launches
 
-    saved = layers_mod.fused_residual_unit, hubert_mod.mha
+    saved = layers_mod.fused_residual_unit, decoder_mod.fused_decoder_block, hubert_mod.mha
     layers_mod.fused_residual_unit = (
         lambda x, *p: ops.resunit_reference(x, *p[:-1], dilation=p[-1]))
+    decoder_mod.fused_decoder_block = (
+        lambda x, a0, w3, b3, ru, s: ops.decoder_block_reference(x, a0, w3, b3, ru, stride=s))
     hubert_mod.mha = lambda q, k, v, *, mask=None, implementation="auto": ops.mha_reference(
         q, k, v, mask=mask)
     before = all_launches()
     try:
         yield
     finally:
-        layers_mod.fused_residual_unit, hubert_mod.mha = saved
+        layers_mod.fused_residual_unit, decoder_mod.fused_decoder_block, hubert_mod.mha = saved
     if all_launches() != before:
         fail(f"the plain versions launched kernels: {before} -> {all_launches()}")
 
@@ -2654,6 +2749,302 @@ def source_faults() -> int:
     return 0
 
 
+def write_codec_data(root, encode_flac) -> None:
+    """(k)'s seeded audio under ``root`` in LibriLight's layout (verbatim FLAC
+    subframes): 16 books of CODEC_VAL_BOOK_SECONDS, the recipe's held-out
+    windows, then CODEC_TRAIN_BOOKS of 60 s for training."""
+    import numpy as np
+
+    from edm_tts_tpu_torch.profile_tokenization import prompt_wav
+
+    books = [(f"{100 + i}", CODEC_VAL_BOOK_SECONDS) for i in range(CODEC_RECIPE["validation_split"])]
+    books += [(f"{200 + i}", 60.0) for i in range(CODEC_TRAIN_BOOKS)]
+    for i, (speaker, seconds) in enumerate(books):
+        pcm = np.round(np.clip(prompt_wav(seconds, SEED + 130 + i, 16000), -1, 1) * 32767)
+        path = root / "small" / speaker / "book" / f"{speaker}.flac"
+        path.parent.mkdir(parents=True)
+        path.write_bytes(encode_flac(pcm.astype(np.int64)[None], 16000, blocksize=4096,
+                                     subframe_kind="verbatim"))
+
+
+def codec_training_path(torch, ops, dev, smi: str, held_k1: set) -> dict:
+    """(k): codec GAN training at full width. Writes (k)'s seeded books and
+    the recipe (CODEC_RECIPE: the generator, 12 x 1024 x 8 RVQ with dropout
+    0.5, MPD 2/3/5/7/11 and MRD 2048/1024/512 x 5 bands, B32 x 0.38 s, f32)
+    with the steps, intervals and directories cut; runs ``python -m
+    edm_tts_tpu_torch.train.run_codec`` for CODEC_TRAIN_STEPS steps (one eval,
+    one save, the best generator exported), checks in this process that the
+    trainer's restore of that checkpoint gives G, D and both optimizers as
+    saved, and resumes it to CODEC_RESUME_STEPS; every loss finite, no kernel
+    launched (f32: the plain compositions, as the JAX package's "auto" rule
+    runs them). Then loads the export with ``load_codec(..., bf16)`` and
+    round-trips a seeded clip through K1 and K2, held against the plain
+    versions; last, the gradient of a loss on that model's encoder latents
+    and decoded audio through K1 and K2 under autograd against the same
+    model through the plain versions (flattened, CODEC_GRAD_REL_L2_TOL) and
+    against its f32 copy's (per tensor, CODEC_GRAD_NOISE_FACTOR).
+    Returns the launches of the round trip and of the gradient check."""
+    import copy
+    import tempfile
+
+    from edm_tts_tpu_torch.kernels import all_launches, reset_launches, resunit_shapes
+    from edm_tts_tpu_torch.models.codec.decoder import DecoderBlock
+    from edm_tts_tpu_torch.models.codec.layers import ResidualUnit
+    from edm_tts_tpu_torch.models.codec.losses import ReconstructionLoss
+    from edm_tts_tpu_torch.profile_tokenization import prompt_wav
+    from edm_tts_tpu_torch.train import run_codec
+    from edm_tts_tpu_torch.train.gan_trainer import GANTrainer
+    from edm_tts_tpu_torch.utils import hub
+
+    root = Path(__file__).resolve().parent
+    sys.path.insert(0, str(root / "tests"))
+    from flac_encoder import encode_flac  # a lossless FLAC writer (numpy only)
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_codec_"))
+    try:
+        t0 = time.perf_counter()
+        write_codec_data(tmp / "data", encode_flac)
+        out_dir = tmp / "out"
+        raw = dict(CODEC_RECIPE, output_dir=str(out_dir), logging_steps=1,
+                   eval_steps=CODEC_TRAIN_STEPS, save_steps=CODEC_TRAIN_STEPS,
+                   dataset_args=dict(CODEC_RECIPE["dataset_args"], data_dir=str(tmp / "data")))
+        batch = raw["per_device_train_batch_size"]
+        print(f"train (k): {CODEC_RECIPE['validation_split']} held-out books of "
+              f"{CODEC_VAL_BOOK_SECONDS} s and {CODEC_TRAIN_BOOKS} of 60 s written in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+        def run(steps: int) -> tuple[dict, int, str]:
+            """run_codec to ``steps`` in a subprocess: (launches, peak bytes, output)."""
+            config = tmp / "train_config.yaml"
+            config.write_text(json.dumps(dict(raw, max_steps=steps)))  # JSON is YAML
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "edm_tts_tpu_torch.train.run_codec", str(config)],
+                cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                timeout=CLI_TIMEOUT_S)
+            tail = "\n".join(line for line in proc.stdout.splitlines()
+                             if "watch/" not in line)[-2500:]
+            print(f"train (k) run_codec to step {steps}: exit {proc.returncode} in "
+                  f"{time.perf_counter() - t0:.2f} s; output:\n{tail}", flush=True)
+            if proc.returncode != 0:
+                fail(f"run_codec to step {steps}: exit code {proc.returncode}")
+            peak = [line for line in proc.stdout.splitlines() if line.startswith("peak device")]
+            return launch_line(proc.stdout), int(peak[-1].split()[3]), proc.stdout
+
+        counts_1, peak_1, _ = run(CODEC_TRAIN_STEPS)
+
+        # the resume's starting point: the trainer's restore, in this process,
+        # on models of another seed, against the checkpoint as saved
+        saved = torch.load(out_dir / f"checkpoint_{CODEC_TRAIN_STEPS}" / "state.pt",
+                           map_location=dev, weights_only=True)
+        codec, disc = run_codec.build_models(dict(raw, seed=raw["seed"] + 1), dev)
+        trainer = GANTrainer(run_codec.training_arguments(raw), codec, disc,
+                             ReconstructionLoss(16000), device=dev)
+        start = trainer._restore()
+
+        def leaves(tree, prefix=""):
+            if isinstance(tree, dict):
+                for k, v in tree.items():
+                    yield from leaves(v, f"{prefix}{k}/")
+            else:
+                yield prefix, tree
+
+        restored = dict(leaves(trainer.state()))
+        expected = dict(leaves(saved))
+        differ = [k for k, v in expected.items()
+                  if not (torch.equal(torch.as_tensor(restored[k]).to(dev),
+                                      torch.as_tensor(v).to(dev)))]
+        counts_opt = (trainer.g_opt.count, trainer.d_opt.count)
+        print(f"train (k) resume: the restore starts at step {start} with optimizer counts "
+              f"{counts_opt}; {len(expected)} tensors of G, D and both optimizers, "
+              f"{len(differ)} differ from the checkpoint", flush=True)
+        if start != CODEC_TRAIN_STEPS or differ or set(restored) != set(expected) or \
+                counts_opt != (CODEC_TRAIN_STEPS,) * 2:
+            fail(f"the restore of checkpoint {CODEC_TRAIN_STEPS}: step {start}, counts "
+                 f"{counts_opt}, differing {differ[:5]}")
+        del trainer, codec, disc, saved, restored, expected
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        counts_2, peak_2, out_2 = run(CODEC_RESUME_STEPS)
+        if f"resumed GAN training from step {CODEC_TRAIN_STEPS}" not in out_2:
+            fail("the second run_codec did not resume from the checkpoint")
+        final = torch.load(out_dir / f"checkpoint_{CODEC_RESUME_STEPS}" / "state.pt",
+                           map_location="cpu", weights_only=True)
+        final_counts = (final["gen_optimizer"]["count"], final["disc_optimizer"]["count"])
+        del final
+        records = [json.loads(line) for line in open(out_dir / "metrics.jsonl")]
+        steps = [r for r in records if "train/loss" in r]
+        evals = [r for r in records if "eval/mel_loss" in r]
+        names = ("loss", "mel/loss", "adv/gen_loss", "adv/feat_loss", "vq/commitment_loss",
+                 "vq/codebook_loss", "adv/disc_loss")
+        phases = ("g_forward", "d_step", "d_optim", "g_step", "g_optim")
+        for r in steps:
+            print(f"train (k) step {r['step']}: " + " ".join(
+                f"{k} {r['train/' + k]:.5g}" for k in names) + "; seconds " + " ".join(
+                f"{p} {r['train/time/' + p]:.4f}" for p in phases)
+                + f" wall {1.0 / r['train/steps_per_sec']:.4f}", flush=True)
+        walls = [1.0 / r["train/steps_per_sec"] for r in steps]
+        timed = [r for i, r in enumerate(steps) if i not in (0, CODEC_TRAIN_STEPS)]  # warm-ups
+        med = statistics.median(1.0 / r["train/steps_per_sec"] for r in timed)
+        split = {p: statistics.median(r[f"train/time/{p}"] for r in timed) for p in phases}
+        print(f"train (k) G+D step of B{batch} x {raw['training_segment_length']} s (f32, TF32 "
+              f"off): median {med:.4f} s of wall after each run's first step ({batch / med:.2f} "
+              f"segments per s); device time per phase (median) "
+              f"{ {p: round(v, 4) for p, v in split.items()} }: D step {split['d_step']:.4f} s, G "
+              f"step {split['g_forward'] + split['g_step']:.4f} s (forward "
+              f"{split['g_forward']:.4f} + losses and backward {split['g_step']:.4f}), optimizers "
+              f"{split['d_optim'] + split['g_optim']:.4f} s; peak device memory "
+              f"{peak_1 / 2 ** 30:.2f} / {peak_2 / 2 ** 30:.2f} GiB (the two runs, "
+              f"max_memory_allocated); eval mel loss {[e['eval/mel_loss'] for e in evals]}; "
+              f"walls {[round(w, 4) for w in walls]} ({smi})", flush=True)
+        want = no_launches()
+        print(f"train (k) launches {counts_1} and {counts_2} expected {want}; final optimizer "
+              f"counts {final_counts}", flush=True)
+        values = [r[f"train/{k}"] for r in steps for k in names] + [e["eval/mel_loss"] for e in evals]
+        if [r["step"] for r in steps] != list(range(1, CODEC_RESUME_STEPS + 1)) or len(evals) != 1 \
+                or not all(map(math.isfinite, values)):
+            fail(f"codec training: steps {[r['step'] for r in steps]}, evals {evals}, "
+                 f"non-finite values in {values}")
+        if counts_1 != want or counts_2 != want:
+            fail(f"codec training at f32 launched kernels: {counts_1}, {counts_2}")
+        if final_counts != (CODEC_RESUME_STEPS,) * 2:
+            fail(f"the resumed run's optimizer counts {final_counts}")
+
+        # the best generator, exported in the reference format, in bf16
+        codec = hub.load_codec(str(out_dir / "best_model"), device=dev, dtype=torch.bfloat16)
+        clip = torch.from_numpy(prompt_wav(CODEC_CLIP_SECONDS, SEED + 160, 16000)).to(dev)
+        x = clip.float()[None, :, None]
+        length = x.shape[1]
+        reset_launches()
+        out = codec(x)
+        torch.cuda.synchronize()
+        counts_rt = all_launches()
+        shapes_rt = set(resunit_shapes)
+        n_units = 3 * (len(codec.config.encoder_rates) + len(codec.config.decoder_rates))
+        fused = sum(1 for m in codec.decoder.modules() if isinstance(m, DecoderBlock) and m.fused)
+        want_rt = no_launches(resunit=n_units, decoder_block=fused)
+        with plain_versions(ops):
+            plain = codec(x)
+            plain_audio = codec.decode(out["z"], length)
+        rel_z = rel_l2(torch, out["z_e"], plain["z_e"])
+        rel_audio = rel_l2(torch, out["audio"], plain_audio)
+        same = (out["codes"][:, 0] == plain["codes"][:, 0]).float().mean().item()
+        print(f"train (k) export: bf16 round trip of a seeded {CODEC_CLIP_SECONDS:.0f} s clip: "
+              f"audio {tuple(out['audio'].shape)} finite {bool(torch.isfinite(out['audio']).all())}; "
+              f"against the plain versions: encoder latents rel_l2 {rel_z:.4g} (tol "
+              f"{TOKENIZE_REL_L2_TOL}), level-0 codes equal {same:.4f} (min "
+              f"{TOKENIZE_ACOUSTIC_SAME}), decode of the same z rel_l2 {rel_audio:.4g} (tol "
+              f"{DECODE_REL_L2_TOL}); launches {counts_rt} expected {want_rt}", flush=True)
+        if (tuple(out["audio"].shape) != (1, length, 1) or not torch.isfinite(out["audio"]).all()
+                or counts_rt != want_rt):
+            fail(f"the exported codec's round trip: {tuple(out['audio'].shape)}, {counts_rt}")
+        if not (rel_z <= TOKENIZE_REL_L2_TOL and rel_audio <= DECODE_REL_L2_TOL
+                and same >= TOKENIZE_ACOUSTIC_SAME):
+            fail(f"the round trip against the plain versions: {rel_z}, {rel_audio}, {same}")
+
+        # K1/K2 under autograd: a loss on the encoder latents of the clip and
+        # on the decode of the round trip's z, the model's kernel-run tensors
+        # (every residual unit; the K2 blocks' snake and transposed conv);
+        # against the plain versions, and each tensor against the same
+        # model's f32 gradient (plain compositions, no kernel)
+        c32 = copy.deepcopy(codec)
+        c32.encoder.float()
+        c32.decoder.float()
+        c32.dtype = torch.float32
+        c32.pack()
+        z = out["z"].detach()
+        gen = torch.Generator(device=dev).manual_seed(SEED + 161)
+        w_z = torch.randn(out["z_e"].shape, generator=gen, device=dev)
+        w_a = torch.randn(out["audio"].shape, generator=gen, device=dev)
+
+        def gradients(model) -> dict:
+            checked = {f"{name}.{p_name}": p
+                       for name, m in model.named_modules()
+                       if isinstance(m, ResidualUnit) or (isinstance(m, DecoderBlock) and m.fused)
+                       for p_name, p in (m.named_parameters() if isinstance(m, ResidualUnit)
+                                         else m.block[:2].named_parameters())}
+            model.zero_grad(set_to_none=True)
+            xg = x.clone().requires_grad_()
+            with torch.enable_grad():
+                loss = ((model.encoder(xg).float() * w_z).sum()
+                        + (model.decode(z, length).float() * w_a).sum())
+                loss.backward()
+            torch.cuda.synchronize()
+            return {"x": xg.grad.float(), **{n: p.grad.float().clone() for n, p in checked.items()}}
+
+        def flat(grads) -> torch.Tensor:
+            return torch.cat([g.flatten() for g in grads.values()])
+
+        reset_launches()
+        with_kernels = gradients(codec)
+        counts_grad = all_launches()
+        shapes_grad = set(resunit_shapes)
+        with plain_versions(ops):
+            reference = gradients(codec)
+        exact = gradients(c32)
+
+        def judge(grads) -> tuple[float, dict, str]:
+            """(flattened rel l2 to the plain versions, per-tensor distances
+            to f32 over their limits, the worst tensor)"""
+            over = {n: rel_l2(torch, grads[n], exact[n]) / (
+                CODEC_GRAD_NOISE_FACTOR * rel_l2(torch, reference[n], exact[n])
+                + CODEC_GRAD_NOISE_FLOOR) for n in exact}
+            return rel_l2(torch, flat(grads), flat(reference)), over, max(over, key=over.get)
+
+        rels = {n: rel_l2(torch, with_kernels[n], reference[n]) for n in reference}
+        worst = max(rels, key=rels.get)
+        flat_rel, over, worst_over = judge(with_kernels)
+        plain_f32 = {n: rel_l2(torch, reference[n], exact[n]) for n in exact}
+        kernel_f32 = {n: rel_l2(torch, with_kernels[n], exact[n]) for n in exact}
+        print(f"train (k) K1/K2 gradient: {len(rels)} tensors (x and the alphas, v, g and "
+              f"biases of {n_units} units and {fused} K2 blocks); against the plain versions: "
+              f"flattened relative l2 {flat_rel:.4g} (tol {CODEC_GRAD_REL_L2_TOL}), per tensor "
+              f"largest {rels[worst]:.4g} at {worst}, median {statistics.median(rels.values()):.4g}, "
+              f"x {rels['x']:.4g}; against the f32 model's gradient: kernels largest "
+              f"{max(kernel_f32.values()):.4g} median {statistics.median(kernel_f32.values()):.4g} "
+              f"flattened {rel_l2(torch, flat(with_kernels), flat(exact)):.4g}, the plain bf16 "
+              f"composition largest {max(plain_f32.values()):.4g} median "
+              f"{statistics.median(plain_f32.values()):.4g} flattened "
+              f"{rel_l2(torch, flat(reference), flat(exact)):.4g}; the kernels' distance over its "
+              f"limit ({CODEC_GRAD_NOISE_FACTOR} x the plain composition's + "
+              f"{CODEC_GRAD_NOISE_FLOOR}) at most {over[worst_over]:.4g} at {worst_over}; launches "
+              f"{counts_grad} expected {want_rt} ({smi})", flush=True)
+
+        # a planted fault: K1's backward recomputing its unit with alpha2 = 1
+        import edm_tts_tpu_torch.ops.decoder_block as block_ops
+        import edm_tts_tpu_torch.ops.resunit as resunit_ops
+
+        original = resunit_ops.resunit_reference
+
+        def faulty(x, a1, w7, b7, a2, w1, b1, *, dilation):
+            return original(x, a1, w7, b7, a2 * 0 + 1, w1, b1, dilation=dilation)
+
+        resunit_ops.resunit_reference = block_ops.resunit_reference = faulty
+        try:
+            fault_flat, fault_over, fault_worst = judge(gradients(codec))
+        finally:
+            resunit_ops.resunit_reference = block_ops.resunit_reference = original
+        print(f"train (k) K1/K2 gradient, planted fault (K1's backward with alpha2 = 1): "
+              f"flattened {fault_flat:.4g}, over its limit at most {fault_over[fault_worst]:.4g} "
+              f"at {fault_worst}", flush=True)
+        if counts_grad != want_rt or not flat_rel <= CODEC_GRAD_REL_L2_TOL or \
+                not over[worst_over] <= 1.0:
+            fail(f"K1/K2 gradients: flattened {flat_rel}, {worst_over} at {over[worst_over]} of "
+                 f"its limit, launches {counts_grad}")
+        if fault_flat <= CODEC_GRAD_REL_L2_TOL and fault_over[fault_worst] <= 1.0:
+            fail("the K1/K2 gradient limits let a wrong backward pass")
+        missing = (shapes_rt | shapes_grad) - held_k1
+        if missing:
+            fail(f"(k) ran K1 at shapes the kernel phase did not hold: {sorted(missing)}")
+        del codec, c32, out, plain, with_kernels, reference, exact
+        gc.collect()
+        torch.cuda.empty_cache()
+        return {name: counts_rt[name] + counts_grad[name] for name in KERNELS}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import argparse
 
@@ -2890,9 +3281,15 @@ def main() -> int:
 
     # 13. (j) offline preprocessing: hubert_kmeans, dump_tokens, a step on the shards
     counts_j = preprocessing_path(torch, dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 14. (k) codec GAN training, the export's bf16 round trip, K1/K2 gradients
+    counts_k = codec_training_path(torch, ops, dev, smi, held_k1)
 
     by_path = {"a": counts_a, "b": counts_b, "c": counts_c, "g": counts_g, "h": counts_h,
-               "d": counts_d, "e": counts_e, "f": counts_f, "i": counts_i, "j": counts_j}
+               "d": counts_d, "e": counts_e, "f": counts_f, "i": counts_i, "j": counts_j,
+               "k": counts_k}
     record = {"kernels": []}
     for name in KERNELS:
         cs = cases[name]

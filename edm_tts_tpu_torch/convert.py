@@ -2,13 +2,15 @@
 
 ``load_reference_state_dict`` takes a state dict in the reference
 (``from_pretrained``) format as numpy arrays — what the JAX package's
-``models/{codec,t2s,s2a}/convert.py::to_torch_state_dict`` emit — folds
-every weight-norm pair into its effective weight and loads the result
-strictly: every key is used and every parameter and buffer is filled.
+``models/{codec,t2s,s2a}/convert.py::to_torch_state_dict`` emit — and loads
+it strictly: every key is used and every parameter and buffer is filled.
+The codec's weight-norm pairs, in either torch spelling, load as the
+modules' ``weight_v`` / ``weight_g`` parameters, and each module keeps the
+f32 fold of its pair as its inference kernel.
 
 ``init_random_weights`` fills a model from a seed, for runs that have no
-checkpoint (the card's smoke run): same shapes and scales as a fresh model,
-deterministic for a given seed and device.
+checkpoint (the card's smoke run, a training run's start): same shapes and
+scales as a fresh model, deterministic for a given seed and device.
 
 Both end by laying the codec's weights out once as its kernels take them
 (``Encoder.pack`` and ``Decoder.pack``). HuBERT's weights come in HF's
@@ -26,7 +28,12 @@ from torch import nn
 
 from edm_tts_tpu_torch.models.codec.decoder import Decoder
 from edm_tts_tpu_torch.models.codec.encoder import Encoder
-from edm_tts_tpu_torch.models.codec.layers import Snake, WNConv1d, WNConvTranspose1d
+from edm_tts_tpu_torch.models.codec.layers import (
+    Snake,
+    WeightNormed,
+    fold_weight,
+    norm_but_first,
+)
 from edm_tts_tpu_torch.models.conformer.conformer import ChanLayerNorm
 from edm_tts_tpu_torch.models.s2a.model import InjectionConformer, _StackedLogits
 from edm_tts_tpu_torch.models.t2s.model import TextToSemantic
@@ -41,13 +48,8 @@ _WN_PARTS = {
 }
 
 
-def fold_weight_norm(sd: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor]:
-    """Replace each ``(g, v)`` pair by ``<prefix>.weight = g * v / ||v||``.
-
-    torch's ``weight_norm(dim=0)`` takes the norm over every dim but the
-    first, for Conv1d (per output channel), ConvTranspose1d (per *input*
-    channel) and the RVQ's 1x1 projections alike.
-    """
+def _split_pairs(sd: Mapping[str, np.ndarray]):
+    """``(other entries as tensors, {prefix: {"g": g, "v": v}})`` of ``sd``."""
     out: dict[str, torch.Tensor] = {}
     pairs: dict[str, dict[str, np.ndarray]] = {}
     for key, arr in sd.items():
@@ -60,21 +62,59 @@ def fold_weight_norm(sd: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor]:
     for prefix, pair in pairs.items():
         if set(pair) != {"g", "v"}:
             raise KeyError(f"weight norm pair at {prefix!r} is incomplete: {sorted(pair)}")
+    return out, pairs
+
+
+def fold_weight_norm(sd: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor]:
+    """Replace each ``(g, v)`` pair by ``<prefix>.weight = g * v / ||v||``.
+
+    torch's ``weight_norm(dim=0)`` takes the norm over every dim but the
+    first, for Conv1d (per output channel), ConvTranspose1d (per *input*
+    channel) and the RVQ's 1x1 projections alike.
+    """
+    out, pairs = _split_pairs(sd)
+    for prefix, pair in pairs.items():
         v = torch.as_tensor(np.asarray(pair["v"], np.float32))
         g = torch.as_tensor(np.asarray(pair["g"], np.float32)).reshape(-1)
         out[f"{prefix}.weight"] = weight_norm(v.movedim(0, -1), g).movedim(-1, 0)
     return out
 
 
+def weight_norm_tensors(sd: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor]:
+    """``sd`` as tensors with each pair under the legacy names
+    ``<prefix>.weight_v`` and ``<prefix>.weight_g`` (g shaped ``(C, 1, ...)``
+    as ``weight_norm`` keeps it), whichever spelling it came in."""
+    out, pairs = _split_pairs(sd)
+    for prefix, pair in pairs.items():
+        v = torch.as_tensor(np.array(pair["v"], np.float32))
+        out[f"{prefix}.weight_v"] = v
+        out[f"{prefix}.weight_g"] = torch.as_tensor(np.array(pair["g"], np.float32)).reshape(
+            v.shape[0], *(1,) * (v.dim() - 1))
+    return out
+
+
 def load_reference_state_dict(module: nn.Module, sd: Mapping[str, np.ndarray]) -> None:
-    """Load a reference-format numpy state dict into ``module``, strictly."""
-    folded = fold_weight_norm(sd)
+    """Load a reference-format numpy state dict into ``module``, strictly.
+
+    A weight-normed module's folded ``<prefix>.weight`` (as the port's
+    exports before trainable weight norm wrote it) loads as ``v = weight``,
+    ``g = ||weight||``: the same kernel."""
+    tensors = weight_norm_tensors(sd)
+    normed = {name: m for name, m in module.named_modules() if isinstance(m, WeightNormed)}
+    for name in normed:
+        w = tensors.pop(f"{name}.weight", None)
+        if w is not None and f"{name}.weight_v" not in tensors:
+            tensors[f"{name}.weight_v"], tensors[f"{name}.weight_g"] = w.float(), norm_but_first(w)
+        elif w is not None:
+            tensors[f"{name}.weight"] = w  # both forms: strict loading refuses it
     own = module.state_dict()
-    for key, t in folded.items():
+    for key, t in tensors.items():
         if key in own and tuple(t.shape) != tuple(own[key].shape):
             raise ValueError(f"{key}: checkpoint shape {tuple(t.shape)} != "
                              f"model shape {tuple(own[key].shape)}")
-    module.load_state_dict(folded, strict=True)
+    module.load_state_dict(tensors, strict=True)
+    for name, m in normed.items():  # the f32 fold, then in the module's dtype
+        m.fold(fold_weight(tensors[f"{name}.weight_v"], tensors[f"{name}.weight_g"]))
     _pack_codecs(module)
 
 
@@ -86,13 +126,16 @@ def _pack_codecs(module: nn.Module) -> None:
 
 
 @torch.no_grad()
-def init_random_weights(module: nn.Module, seed: int) -> None:
+def init_random_weights(module: nn.Module, seed: int, *, snake_alpha: float | None = None) -> None:
     """Fill every parameter of ``module`` from ``seed``.
 
     Convs (weight-normed or not): U(+-1/sqrt(fan_in)) as torch initialises
-    them; linears and the stacked logits head: N(0, 1/fan_in); embeddings,
-    codebooks and the learned tokens: N(0, 1); snake alphas U(0.5, 2), so
-    that a decode exercises them; norm scales: 1; other biases: 0.
+    them, a weight-normed one's ``g = ||v||`` (so its kernel is v, as the
+    JAX package initialises it); linears and the stacked logits head:
+    N(0, 1/fan_in); embeddings, codebooks and the learned tokens: N(0, 1);
+    snake alphas U(0.5, 2), so that a decode exercises them, or
+    ``snake_alpha`` (1.0 for a training run's start, as the JAX package
+    initialises them); norm scales: 1; other biases: 0.
     """
     gens: dict[torch.device, torch.Generator] = {}
 
@@ -108,14 +151,14 @@ def init_random_weights(module: nn.Module, seed: int) -> None:
     done: set[int] = set()
     for m in module.modules():
         own = list(m.parameters(recurse=False))
-        if isinstance(m, WNConv1d):
-            fan_in = m.weight.shape[1] * m.weight.shape[2]
-            uniform(m.weight, fan_in)
+        if isinstance(m, WeightNormed):
+            # conv: C_in/groups * K; transposed conv (C_in, C_out, K): C_out * K
+            v = m.weight_v
+            fan_in = math.prod(v.shape[1:])
+            uniform(v, fan_in)
             uniform(m.bias, fan_in)
-        elif isinstance(m, WNConvTranspose1d):
-            fan_in = m.weight.shape[1] * m.weight.shape[2]  # torch: C_out * K
-            uniform(m.weight, fan_in)
-            uniform(m.bias, fan_in)
+            m.weight_g.copy_(norm_but_first(v))
+            m.fold()
         elif isinstance(m, nn.Conv1d):
             uniform(m.weight, m.weight.shape[1] * m.weight.shape[2])
             if m.bias is not None:
@@ -130,7 +173,10 @@ def init_random_weights(module: nn.Module, seed: int) -> None:
         elif isinstance(m, nn.Embedding):
             m.weight.normal_(0.0, 1.0, generator=gen(m.weight))
         elif isinstance(m, Snake):
-            m.alpha.uniform_(0.5, 2.0, generator=gen(m.alpha))
+            if snake_alpha is None:
+                m.alpha.uniform_(0.5, 2.0, generator=gen(m.alpha))
+            else:
+                m.alpha.fill_(snake_alpha)
         elif isinstance(m, ChanLayerNorm):
             for p in own:
                 p.fill_(1.0)

@@ -1,8 +1,9 @@
-"""Batch collators (copies of ``collate_s2a``, ``t2s_filter``,
-``collate_t2s``, ``length_bucketed`` and ``collate_dump_batch`` in
-edm_tts_tpu/data/collators.py, whose module imports the t2s config and with
-it jax; pinned equal by tests/test_torch_train_data.py,
-tests/test_torch_t2s_train.py and tests/test_torch_preprocess.py)."""
+"""Batch collators (copies of ``collate_codec_audio``, ``collate_s2a``,
+``t2s_filter``, ``collate_t2s``, ``length_bucketed`` and
+``collate_dump_batch`` in edm_tts_tpu/data/collators.py, whose module
+imports the t2s config and with it jax; pinned equal by
+tests/test_torch_train_data.py, tests/test_torch_t2s_train.py,
+tests/test_torch_preprocess.py and tests/test_torch_codec_train.py)."""
 
 from __future__ import annotations
 
@@ -12,6 +13,11 @@ from typing import Iterable, Iterator, Sequence
 import numpy as np
 
 from edm_tts_tpu_torch.models.t2s.config import SPECIAL_TOKENS
+
+
+def collate_codec_audio(segments: Sequence[np.ndarray]) -> np.ndarray:
+    """Stack equal-length audio segments -> (B, T, 1)."""
+    return np.stack(segments, axis=0)[..., None].astype(np.float32)
 
 
 def collate_s2a(examples: Sequence[dict]) -> dict:

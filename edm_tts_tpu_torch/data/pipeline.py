@@ -1,18 +1,20 @@
 """Streaming helpers of the input pipelines (copies of ``shard_for_process``,
-``shuffle_buffer``, ``load_audio_segments`` and ``crop_code_example`` in
-edm_tts_tpu/data/pipeline.py, whose module imports jax through its audio
-helpers; pinned equal by tests/test_torch_train_data.py and
-tests/test_torch_preprocess.py).
+``shuffle_buffer``, ``load_audio_segments``, ``silence_filter``,
+``volume_normalize``, ``codec_audio_pipeline``, ``crop_code_example`` and
+``batched`` in edm_tts_tpu/data/pipeline.py, whose module imports jax
+through its audio helpers; pinned equal by tests/test_torch_train_data.py,
+tests/test_torch_preprocess.py and tests/test_torch_codec_train.py).
 """
 
 from __future__ import annotations
 
 import random
-from typing import Iterable, Iterator
+from typing import Callable, Iterable, Iterator
 
 import numpy as np
 
 from edm_tts_tpu_torch.data.audio_io import load_audio
+from edm_tts_tpu_torch.ops.loudness import integrated_loudness, normalize_loudness
 from edm_tts_tpu_torch.ops.resample import resample_numpy
 
 
@@ -72,6 +74,56 @@ def load_audio_segments(
         }
 
 
+def silence_filter(audio: np.ndarray, sample_rate: int, threshold_db: float = -40.0) -> bool:
+    """Keep segments louder than the threshold."""
+    return float(integrated_loudness(audio[None], sample_rate)[0]) > threshold_db
+
+
+def volume_normalize(audio: np.ndarray, sample_rate: int, dbfs: float = -16.0) -> np.ndarray:
+    return normalize_loudness(audio[None], sample_rate, dbfs)[0][0]
+
+
+def codec_audio_pipeline(
+    manifest: Iterable[dict],
+    *,
+    target_sr: int = 16000,
+    segment_seconds: float = 0.38,
+    silence_threshold_db: float = -40.0,
+    normalize_dbfs: float = -16.0,
+    shuffle: int = 10_000,
+    seed: int = 42,
+    repeat: bool = True,
+    prefetch_threads: int = 0,
+) -> Iterator[np.ndarray]:
+    """The codec-training example stream (one audio segment per yield):
+    shuffle buffer, fixed segments, the silence filter, loudness
+    normalization, epoch after epoch unless ``repeat`` is off.
+    ``prefetch_threads > 0`` decodes FLAC windows ahead on the C++ thread
+    pool (data/native_prefetch.py)."""
+    manifest = list(manifest)
+
+    def one_pass(epoch_seed):
+        examples = shuffle_buffer(iter(manifest), min(shuffle, max(len(manifest), 1)),
+                                  seed=epoch_seed)
+        if prefetch_threads > 0:
+            from edm_tts_tpu_torch.data.native_prefetch import prefetch_manifest
+
+            examples = prefetch_manifest(examples, n_threads=prefetch_threads)
+        for ex in examples:
+            for seg in load_audio_segments(ex, target_sr, segment_seconds):
+                a = seg["audio"]
+                if not silence_filter(a, target_sr, silence_threshold_db):
+                    continue
+                yield volume_normalize(a, target_sr, normalize_dbfs)
+
+    epoch = 0
+    while True:
+        yield from one_pass(seed + epoch)
+        epoch += 1
+        if not repeat:
+            return
+
+
 def crop_code_example(
     example: dict,
     segment_frames: int,
@@ -90,3 +142,13 @@ def crop_code_example(
         "acoustic_tokens": a[:, start : start + segment_frames],
         "semantic_tokens": s[start : start + segment_frames],
     }
+
+
+def batched(examples: Iterator[dict | np.ndarray], batch_size: int,
+            stack: Callable | None = None) -> Iterator:
+    buf = []
+    for ex in examples:
+        buf.append(ex)
+        if len(buf) == batch_size:
+            yield stack(buf) if stack else buf
+            buf = []

@@ -49,14 +49,45 @@ def all_launches() -> dict[str, int]:
 
 def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
     """Raise if autograd would need a gradient through a kernel that has no
-    backward (K1, K2 and K5): its output is not attached to the graph, so
-    the gradient would be lost without a word. Call such kernels under
-    ``torch.no_grad()`` or with inputs that do not require grad."""
+    backward (K5, as the JAX package's ``int8_dense`` has no VJP): its
+    output is not attached to the graph, so the gradient would be lost
+    without a word. Call such kernels under ``torch.no_grad()`` or with
+    inputs that do not require grad."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
-            f"{name}: the kernel has no backward (the codec kernels K1/K2 get theirs "
-            "with the codec-training slice; int8 K5 is inference-only); call it under "
-            "torch.no_grad()")
+            f"{name}: the kernel has no backward (int8 K5 is inference-only, as the JAX "
+            "package's int8_dense has no VJP); call it under torch.no_grad()")
+
+
+class _PlainBackward(torch.autograd.Function):
+    """Forward: ``launch(*tensors)``; backward: the VJP of ``plain(*tensors)``
+    on the saved inputs, recomputed under ``enable_grad``."""
+
+    @staticmethod
+    def forward(ctx, launch, plain, *tensors):
+        ctx.plain = plain
+        ctx.save_for_backward(*tensors)
+        return launch(*tensors)
+
+    @staticmethod
+    def backward(ctx, grad):
+        needs = ctx.needs_input_grad[2:]
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, needs)]
+            wanted = [t for t in leaves if t.requires_grad]
+            grads = iter(torch.autograd.grad(ctx.plain(*leaves), wanted, grad, allow_unused=True))
+        return (None, None, *(next(grads) if n else None for n in needs))
+
+
+def with_plain_backward(launch, plain, *tensors: torch.Tensor) -> torch.Tensor:
+    """``launch(*tensors)`` (a kernel), differentiable as ``plain(*tensors)``
+    (its plain composition): the JAX package's ``custom_vjp`` whose backward
+    is the VJP of the plain composition (K1's and K2's). The forward keeps
+    the inputs, not the composition's intermediates; the backward
+    recomputes them. Without a gradient to record, just ``launch``."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return _PlainBackward.apply(launch, plain, *tensors)
+    return launch(*tensors)
 
 
 @functools.lru_cache(maxsize=None)

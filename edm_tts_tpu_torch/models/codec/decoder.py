@@ -19,6 +19,9 @@ the stem, after each transposed conv and after each residual unit, which
 reproduces the zero padding an exact canvas's convs see. K2 does not
 re-zero between its stages, so a block with a boundary runs unfused; the
 residual units stay K1 (they ignore the boundary, as in the JAX package).
+
+Under autograd K1 and K2 take the live weights, and their backward is the
+plain composition's, as the JAX kernels' ``custom_vjp`` is.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from edm_tts_tpu_torch.models.codec.layers import (
     Snake,
     WNConv1d,
     WNConvTranspose1d,
+    records_grad,
 )
 from edm_tts_tpu_torch.ops import fused_decoder_block
 from edm_tts_tpu_torch.ops.decoder_block import phase_weights
@@ -72,22 +76,31 @@ class DecoderBlock(nn.Module):
         self.fused = stride % 2 == 0 and _FUSED_HALO % stride == 0 and cout <= 192
         self.kernel_args: tuple[torch.Tensor, ...] | None = None
 
+    def _front_layout(self, dtype) -> tuple[torch.Tensor, ...]:
+        snake0, tconv = self.block[:2]
+        wt, bt = tconv.folded()
+        return (snake0.alpha.view(-1).float().contiguous(),
+                phase_weights(wt.to(dtype), self.stride).contiguous(),
+                bt.float().repeat(self.stride).contiguous())
+
     @torch.no_grad()
     def pack(self) -> None:
         """Pack the residual units and, for a fused block, lay the snake and
         transposed conv out as K2 takes them: alpha in f32, the phase weights
         ``(3, C_in, s*C_out)`` in the module's dtype, the bias tiled ``s``
         times in f32."""
-        snake0, tconv, *units = self.block
-        for u in units:
+        for u in self.block[2:]:
             u.pack()
         if self.fused:
-            wt, bt = tconv.folded()
-            self.kernel_args = (
-                snake0.alpha.detach().view(-1).float().contiguous(),
-                phase_weights(wt.detach(), self.stride).contiguous(),
-                bt.detach().float().repeat(self.stride).contiguous(),
-            )
+            self.kernel_args = self._front_layout(self.block[1].bias.dtype)
+
+    def kernel_inputs(self, dtype: torch.dtype) -> tuple[torch.Tensor, ...]:
+        """K2's front arguments: the packed ones, or, while autograd records
+        through the block, its live weights in the same layouts (the
+        gradient reaches the transposed conv through ``phase_weights``)."""
+        if records_grad(self):
+            return self._front_layout(dtype)
+        return self.kernel_args
 
     def uses_kernel(self, x: torch.Tensor, boundary: torch.Tensor | None) -> bool:
         """Whether this block runs K2 on ``x``: a block the kernel takes
@@ -100,8 +113,8 @@ class DecoderBlock(nn.Module):
             if self.kernel_args is None:
                 raise RuntimeError("DecoderBlock: weights not packed; load them through "
                                    "edm_tts_tpu_torch.convert or call pack()")
-            return fused_decoder_block(x.contiguous(), *self.kernel_args,
-                                       [u.kernel_args for u in units], self.stride)
+            return fused_decoder_block(x.contiguous(), *self.kernel_inputs(x.dtype),
+                                       [u.kernel_inputs(x.dtype) for u in units], self.stride)
         boundary = _grow(boundary, self.stride)
         x = _zero_invalid(tconv(snake0(x)), boundary)  # snake(0) == 0
         for u in units:

@@ -65,7 +65,7 @@ class Encoder(nn.Module):
     def forward(self, audio: torch.Tensor) -> torch.Tensor:
         """``(B, T, 1)`` waveform -> ``(B, T / prod(strides), enc_dim)`` latents,
         in the module's dtype."""
-        x = audio.to(self.block[0].weight.dtype)
+        x = audio.to(self.block[0].bias.dtype)
         for layer in self.block:
             x = layer(x)
         return x

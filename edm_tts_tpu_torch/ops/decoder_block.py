@@ -19,6 +19,14 @@ zero for all their columns), then the three residual units as K1 launches
 (ops/resunit.py). Each K1 launch zero-pads outside ``[0, T*s)``, which is
 what the Pallas kernel's re-zeroing between stages does, so the two parts
 compute the same block.
+
+Under autograd the block (and the front alone) is the forward of an
+autograd function whose backward is the VJP of its plain version on the
+saved inputs, as the JAX kernel's ``custom_vjp``
+(edm_tts_tpu/ops/pallas_decoder_block.py, ``_bwd``). The JAX kernel takes
+the transposed-conv weight and differentiates it directly; here the
+gradient reaches ``w3`` and ``bias3``, and through ``phase_weights`` and
+the bias tiling (which the caller differentiates) the transposed conv.
 """
 
 from __future__ import annotations
@@ -28,7 +36,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from edm_tts_tpu_torch.kernels import H100_SMS, launches, refuse_grad, sm_count
+from edm_tts_tpu_torch.kernels import H100_SMS, launches, sm_count, with_plain_backward
 from edm_tts_tpu_torch.kernels.build import check_launch, library
 from edm_tts_tpu_torch.ops.attention import _aligned
 from edm_tts_tpu_torch.ops import resunit
@@ -139,13 +147,19 @@ def tconv_phase(x, alpha0, w3, bias3, stride: int, *, tile: int | None = None):
     s*C_out)``; ``alpha0`` and ``bias3`` contiguous f32; ``C_in`` and
     ``C_out`` multiples of 16. ``tile`` forces the column tile (one of
     ``DECODER_BLOCK_TILES``; else ``decoder_block_tile``'s choice); the CPU
-    path ignores it. No backward: on CUDA it raises when autograd would
-    need a gradient through it.
+    path ignores it. Differentiable: the backward is the plain version's VJP.
     """
-    if not x.is_cuda:
+    def plain(x, alpha0, w3, bias3):
         b, t, _ = x.shape
         return tconv_phase_reference(x, alpha0, w3, bias3).reshape(b, t * stride, -1)
-    refuse_grad("fused_decoder_block", x, alpha0, w3, bias3)
+
+    if not x.is_cuda:
+        return plain(x, alpha0, w3, bias3)
+    return with_plain_backward(functools.partial(_launch_front, stride=stride, tile=tile),
+                               plain, x, alpha0, w3, bias3)
+
+
+def _launch_front(x, alpha0, w3, bias3, *, stride: int, tile: int | None):
     if x.dtype != torch.bfloat16 or x.dim() != 3 or not x.is_contiguous():
         raise ValueError(f"fused_decoder_block: x must be contiguous bf16 (B, T, C), "
                          f"got {x.dtype} {tuple(x.shape)}")
@@ -185,14 +199,23 @@ def fused_decoder_block(x, alpha0, w3, bias3, ru_params, stride: int):
     """Decoder block through K2 (+ K1) on the card, the plain version on CPU.
 
     On CUDA: the front's arguments as ``tconv_phase`` takes them, the
-    residual units' parameters as ``fused_residual_unit`` takes them. K2
-    has no backward: on CUDA it raises when autograd would need a gradient
-    through it.
+    residual units' parameters as ``fused_residual_unit`` takes them.
+    Differentiable: the backward is the VJP of ``decoder_block_reference``.
     """
     if not x.is_cuda:
         return decoder_block_reference(x, alpha0, w3, bias3, ru_params, stride=stride)
-    refuse_grad("fused_decoder_block", x, alpha0, w3, bias3, *(p for u in ru_params for p in u))
-    y = tconv_phase(x, alpha0, w3, bias3, stride)
-    for d, p in zip(DILATIONS, ru_params):
-        y = fused_residual_unit(y, *p, d)
-    return y
+    flat = [p for u in ru_params for p in u]
+
+    def units(flat_params):
+        return [tuple(flat_params[i:i + 6]) for i in range(0, len(flat_params), 6)]
+
+    def launch(x, alpha0, w3, bias3, *flat_params):
+        y = tconv_phase(x, alpha0, w3, bias3, stride)
+        for d, p in zip(DILATIONS, units(flat_params)):
+            y = fused_residual_unit(y, *p, d)
+        return y
+
+    def plain(x, alpha0, w3, bias3, *flat_params):
+        return decoder_block_reference(x, alpha0, w3, bias3, units(flat_params), stride=stride)
+
+    return with_plain_backward(launch, plain, x, alpha0, w3, bias3, *flat)

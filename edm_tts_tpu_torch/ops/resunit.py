@@ -13,6 +13,11 @@ On the card one unit is three launches of K1's source (one count in
 implicit GEMM (bias and the second snake in its epilogue, into a bf16
 scratch) and the k=1 conv (bias and residual in its epilogue), each product
 in blocks of 128 time rows x ``resunit_tile`` output channels.
+
+Under autograd K1 is the forward of an autograd function whose backward is
+the VJP of ``resunit_reference`` on the saved inputs, as the JAX kernel's
+``custom_vjp`` (edm_tts_tpu/ops/pallas_resunit.py, ``_bwd``): the gradient
+reaches x, the alphas, the weights and the biases.
 """
 
 from __future__ import annotations
@@ -21,7 +26,13 @@ import functools
 
 import torch
 
-from edm_tts_tpu_torch.kernels import H100_SMS, launches, refuse_grad, resunit_shapes, sm_count
+from edm_tts_tpu_torch.kernels import (
+    H100_SMS,
+    launches,
+    resunit_shapes,
+    sm_count,
+    with_plain_backward,
+)
 from edm_tts_tpu_torch.kernels.build import check_launch, library
 from edm_tts_tpu_torch.ops.attention import _aligned
 from edm_tts_tpu_torch.ops.convolution import conv1d
@@ -77,12 +88,17 @@ def fused_residual_unit(x, alpha1, w7, b7, alpha2, w1, b1, dilation: int, *,
     ``w7`` and ``w1`` contiguous bf16, alphas and biases contiguous f32
     ``(C,)``, all on x's device. ``tile`` forces the N tile (one of
     ``RESUNIT_TILES``; else ``resunit_tile``'s choice); the CPU path ignores
-    it. K1 has no backward: on CUDA it raises when autograd would need a
-    gradient through it.
+    it. Differentiable: the backward is the plain version's VJP.
     """
     if not x.is_cuda:
         return resunit_reference(x, alpha1, w7, b7, alpha2, w1, b1, dilation=dilation)
-    refuse_grad("fused_residual_unit", x, alpha1, w7, b7, alpha2, w1, b1)
+    return with_plain_backward(
+        functools.partial(_launch, dilation=dilation, tile=tile),
+        functools.partial(resunit_reference, dilation=dilation),
+        x, alpha1, w7, b7, alpha2, w1, b1)
+
+
+def _launch(x, alpha1, w7, b7, alpha2, w1, b1, *, dilation: int, tile: int | None):
     if x.dtype != torch.bfloat16 or x.dim() != 3 or not x.is_contiguous():
         raise ValueError(f"fused_residual_unit: x must be contiguous bf16 (B, T, C), "
                          f"got {x.dtype} {tuple(x.shape)}")

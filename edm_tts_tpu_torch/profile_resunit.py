@@ -32,7 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from edm_tts_tpu_torch.models.codec import CodecConfig
-from edm_tts_tpu_torch.models.codec.layers import ResidualUnit
+from edm_tts_tpu_torch.models.codec.layers import ResidualUnit, norm_but_first
 from edm_tts_tpu_torch.ops import resunit as resunit_ops
 from edm_tts_tpu_torch.ops.convolution import conv1d_output_length
 from edm_tts_tpu_torch.utils.devtime import bound, median_ms
@@ -119,10 +119,12 @@ def seeded_unit(c: int, dilation: int, gen: torch.Generator) -> ResidualUnit:
             snake.alpha.copy_(0.5 + 1.5 * torch.rand(snake.alpha.shape, generator=gen,
                                                      device="cuda"))
         for conv in (c7, c1):
-            fan_in = conv.weight.shape[1] * conv.weight.shape[2]
-            conv.weight.copy_((torch.rand(conv.weight.shape, generator=gen, device="cuda")
-                               * 2 - 1) * fan_in ** -0.5)
+            v = conv.weight_v
+            fan_in = v.shape[1] * v.shape[2]
+            v.copy_((torch.rand(v.shape, generator=gen, device="cuda") * 2 - 1) * fan_in ** -0.5)
+            conv.weight_g.copy_(norm_but_first(v))
             conv.bias.copy_(0.5 * torch.randn(c, generator=gen, device="cuda"))
+            conv.fold(v)
     unit.pack()
     return unit
 

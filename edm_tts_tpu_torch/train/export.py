@@ -2,8 +2,8 @@
 ``save_t2s`` of edm_tts_tpu/utils/hub.py) and reads back.
 
 A directory holds ``config.json`` and ``pytorch_model.bin``: the model's
-state dict under the reference's key names (weight-norm pairs already
-folded into ``.weight``), CPU tensors. (``safetensors`` is not installed
+state dict under the reference's key names (the codec's weight-norm pairs
+as ``weight_v`` / ``weight_g``), CPU tensors. (``safetensors`` is not installed
 on the card's machine; ``torch.save`` is.) Reading goes through
 ``utils.hub``, the port's one loader, which also reads the reference's
 ``model.safetensors`` directories.

@@ -1,5 +1,6 @@
-"""Optimizer and learning-rate schedule of the s2a/t2s trainings (port of
-edm_tts_tpu/train/optim.py).
+"""Optimizer and learning-rate schedules of the trainings (port of
+edm_tts_tpu/train/optim.py): the s2a/t2s warmup-cosine schedule and the
+codec GAN's per-step exponential one.
 
 ``AdamW`` is ``optax.chain(clip_by_global_norm, adamw)`` written out over
 the trainable parameters only, the set the JAX package's masked optax
@@ -20,6 +21,16 @@ import torch
 from torch import nn
 
 Schedule = Callable[[int], float]
+
+
+def exponential_schedule(base_lr: float, gamma: float) -> Schedule:
+    """``base_lr * gamma ** count``: torch's ExponentialLR stepped every
+    batch, as the codec GAN's two optimizers run it."""
+
+    def schedule(count: int) -> float:
+        return base_lr * gamma ** count
+
+    return schedule
 
 
 def warmup_cosine_schedule(

@@ -12,8 +12,9 @@ directory holds ``config.json`` and its weights in one of two formats:
   an s2a's ``config.json`` names its codec's directory in
   ``acoustic_model_path`` (``acoustic_model_dir`` resolves it);
 - the port's own, as ``train/export.py`` writes it: ``pytorch_model.bin``
-  (a ``torch.save``d state dict, weight norm folded) and a ``config.json``
-  that embeds the s2a's codec config.
+  (a ``torch.save``d state dict, the codec's weight-norm pairs as its
+  modules hold them; an older one's folded ``.weight`` loads too) and a
+  ``config.json`` that embeds the s2a's codec config.
 
 Both load strictly through ``convert.load_reference_state_dict``. The s2a's
 codec takes its config from ``acoustic_model_path`` when there is one, else
@@ -27,8 +28,10 @@ k-means centroids come from an explicit file or from ``centroids.pt``,
 ``centroids.npz`` or ``centroids.npy`` inside the directory.
 
 ``save_reference`` and ``save_hubert_hf`` write those formats from the
-port's models (weight norm written back as parametrize pairs), so that a
-directory made here is read by the loaders above and by the reference.
+port's models (the codec's weight-norm pairs as its modules hold them,
+``weight_v`` / ``weight_g``: a trained codec keeps its trained pairs), so
+that a directory made here is read by the loaders above and by the
+reference.
 ``safetensors`` is not installed on the card's machine: the files go
 through ``utils.safetensors``.
 """
@@ -46,7 +49,6 @@ from torch import nn
 from edm_tts_tpu_torch.convert import load_reference_state_dict
 from edm_tts_tpu_torch.models import quantize as quantization
 from edm_tts_tpu_torch.models.codec import Codec, CodecConfig
-from edm_tts_tpu_torch.models.codec.layers import WNConv1d, WNConvTranspose1d
 from edm_tts_tpu_torch.models.hubert import HubertConfig, load_hf_state_dict
 from edm_tts_tpu_torch.models.hubert.convert import POS_CONV
 from edm_tts_tpu_torch.models.s2a import InjectionConformer, S2AConfig
@@ -205,19 +207,12 @@ def config_dict(cfg, model_type: str) -> dict:
     return d
 
 
-def _weight_norm_pairs(model: nn.Module) -> dict[str, np.ndarray]:
-    """``model``'s f32 state dict with each weight-normed conv's folded
-    weight written as a parametrize pair (``original0`` = its norm over
-    every dim but the first, ``original1`` = the weight)."""
-    sd = {k: v.detach().float().cpu().numpy() if v.is_floating_point() else v.cpu().numpy()
-          for k, v in model.state_dict().items()}
-    for name, m in model.named_modules():
-        if isinstance(m, (WNConv1d, WNConvTranspose1d)):
-            w = sd.pop(f"{name}.weight")
-            sd[f"{name}.parametrizations.weight.original0"] = np.sqrt(
-                (w.astype(np.float64) ** 2).sum(axis=(1, 2), keepdims=True)).astype(np.float32)
-            sd[f"{name}.parametrizations.weight.original1"] = w
-    return sd
+def _numpy_state_dict(model: nn.Module) -> dict[str, np.ndarray]:
+    """``model``'s state dict as numpy, floats in f32; a weight-normed conv
+    writes its own ``weight_v`` / ``weight_g`` (the reference's legacy
+    spelling, which torch's ``weight_norm`` parametrization also loads)."""
+    return {k: v.detach().float().cpu().numpy() if v.is_floating_point() else v.cpu().numpy()
+            for k, v in model.state_dict().items()}
 
 
 def save_reference(path: str, model: Codec | TextToSemantic | InjectionConformer,
@@ -239,7 +234,7 @@ def save_reference(path: str, model: Codec | TextToSemantic | InjectionConformer
         cfg = config_dict(model.cfg, "injection_conformer")
         cfg.pop("codec")
         cfg["acoustic_model_path"] = codec_dir
-    safetensors.save_file(_weight_norm_pairs(model), os.path.join(path, SAFETENSORS_NAME))
+    safetensors.save_file(_numpy_state_dict(model), os.path.join(path, SAFETENSORS_NAME))
     with open(os.path.join(path, "config.json"), "w") as f:
         json.dump(cfg, f, indent=2, sort_keys=True)
 

@@ -9,8 +9,9 @@ tiles (chosen and forced), int8 products at every compiled tile with a
 ragged last row tile, a half last K step and leading batch dimensions,
 bit-equal int8 reruns; and the attention backward (K3's LSE, K4, gradients through
 ``mha``), also at the training slice's shapes, exactly zero dk and dv at
-masked keys, bit-equal reruns, and the kernels without a backward refusing
-a gradient;
+masked keys, bit-equal reruns, and K5 (no backward) refusing a gradient;
+K1's and K2's gradients under autograd (their backward: the plain version's
+VJP) against the plain versions', also through a bf16 codec;
 K6's four variants at both query tiles, padded head depths (D 8, 20) and
 bit-equal reruns; K1 at every N tile of its two products, at T below one
 128-row tile and one past it, dilations whose halo is wider than the
@@ -576,16 +577,17 @@ def test_mha_gradient_on_the_card_goes_through_k4(dev, masked):
 
 
 def test_kernels_without_a_backward_refuse_a_gradient(dev):
+    """K5 has no backward (nor has the JAX package's int8_dense): it raises
+    when autograd would need one. K1 and K2 have one (the plain version's
+    VJP): under autograd their outputs join the graph."""
     gen = torch.Generator(device=dev).manual_seed(0)
     x = torch.randn(1, 40, 32, generator=gen, device=dev).bfloat16().requires_grad_()
     p = _resunit_params(32, dev, gen)
-    with pytest.raises(RuntimeError, match="no backward"):
-        ops.fused_residual_unit(x, *p, 1)
     w3 = phase_weights(torch.randn(4, 32, 16, generator=gen, device=dev).bfloat16(), 2).contiguous()
     rus = [_resunit_params(16, dev, gen) for _ in range(3)]
     args = (_alpha(32, dev, gen), w3, _bias(16, dev, gen).repeat(2), rus, 2)
-    with pytest.raises(RuntimeError, match="no backward"):
-        ops.fused_decoder_block(x, *args)
+    assert ops.fused_residual_unit(x, *p, 1).grad_fn is not None
+    assert ops.fused_decoder_block(x, *args).grad_fn is not None
     wq, scale = ops.quantize_weight(torch.randn(32, 128, generator=gen, device=dev))
     with pytest.raises(RuntimeError, match="no backward"):
         ops.int8_dense(x, wq, scale)
@@ -593,6 +595,132 @@ def test_kernels_without_a_backward_refuse_a_gradient(dev):
         assert not ops.fused_residual_unit(x, *p, 1).requires_grad
         assert not ops.fused_decoder_block(x, *args).requires_grad
         assert not ops.int8_dense(x, wq, scale).requires_grad
+
+
+def _leaves(*tensors):
+    return [t.detach().clone().requires_grad_() for t in tensors]
+
+
+@pytest.mark.parametrize("b,t,c,dil", [(2, 37, 16, 1), (1, 700, 384, 9), (1, 4002, 384, 3)])
+def test_resunit_gradient_is_the_plain_versions(dev, b, t, c, dil):
+    """K1 under autograd: one launch forward, and the gradient of x, both
+    alphas, both weights and both biases is the plain version's (the
+    backward is its VJP on the same inputs)."""
+    gen = torch.Generator(device=dev).manual_seed(t)
+    x = torch.randn(b, t, c, generator=gen, device=dev).bfloat16()
+    p = _resunit_params(c, dev, gen)
+    g = torch.randn(b, t, c, generator=gen, device=dev)
+    kernel, plain = _leaves(x, *p), _leaves(x, *p)
+    reset_launches()
+    out = ops.fused_residual_unit(*kernel, dil)
+    (out.float() * g).sum().backward()
+    assert launches["resunit"] == 1
+    (ops.resunit_reference(*plain, dilation=dil).float() * g).sum().backward()
+    for a, r in zip(kernel, plain):
+        assert a.grad is not None and a.grad.dtype == a.dtype
+        _check(a.grad, r.grad)
+
+
+@pytest.mark.parametrize("b,t,s,cin,cout", [(2, 21, 2, 32, 16), (1, 100, 4, 384, 192)])
+def test_decoder_block_gradient_is_the_plain_versions(dev, b, t, s, cin, cout):
+    """K2 (+ its three K1 units) under autograd: one K2 and three K1
+    launches forward; the gradient of x, the front's alpha, phase weights
+    and bias, and the 18 unit tensors is the plain version's."""
+    gen = torch.Generator(device=dev).manual_seed(t)
+    x = torch.randn(b, t, cin, generator=gen, device=dev).bfloat16()
+    wt = (torch.rand(2 * s, cin, cout, generator=gen, device=dev) * 2 - 1) * (2 * s * cout) ** -0.5
+    front = (_alpha(cin, dev, gen), phase_weights(wt.bfloat16(), s).contiguous(),
+             _bias(cout, dev, gen).repeat(s))
+    flat = [q for _ in range(3) for q in _resunit_params(cout, dev, gen)]
+    g = torch.randn(b, t * s, cout, generator=gen, device=dev)
+
+    def units(ps):
+        return [tuple(ps[i:i + 6]) for i in range(0, 18, 6)]
+
+    kernel, plain = _leaves(x, *front, *flat), _leaves(x, *front, *flat)
+    reset_launches()
+    out = ops.fused_decoder_block(*kernel[:4], units(kernel[4:]), s)
+    (out.float() * g).sum().backward()
+    assert launches["decoder_block"] == 1 and launches["resunit"] == 3
+    (ops.decoder_block_reference(*plain[:4], units(plain[4:]), stride=s).float()
+     * g).sum().backward()
+    for a, r in zip(kernel, plain):
+        assert a.grad is not None
+        _check(a.grad, r.grad)
+
+
+def test_codec_gradient_through_k1_and_k2_matches_the_plain_versions(dev, monkeypatch):
+    """A bf16 codec (every unit and the three even-stride blocks on the
+    kernels) under autograd: the gradients of the input, v, g, the alphas
+    and the biases through K1 and K2 against the same model with the plain
+    versions swapped in (the flattened gradient within 0.02, chip_smoke.py's
+    CODEC_GRAD_REL_L2_TOL) and, tensor by tensor, against the f32 model's:
+    no farther than twice the plain bf16 composition's distance plus 2e-3
+    (CODEC_GRAD_NOISE_FACTOR, _FLOOR; bf16 rounding alone puts a tensor's
+    gradient ~2-3 % from the f32 one). The tensors are the kernels' (as in
+    chip_smoke.py): a scalar such as the last conv's g sums thousands of
+    random-signed terms, and moves by ~20 % with 0.5 % of activation noise."""
+    import copy
+
+    import edm_tts_tpu_torch.models.codec.decoder as decoder_mod
+    import edm_tts_tpu_torch.models.codec.layers as layers_mod
+    from edm_tts_tpu_torch.convert import init_random_weights
+    from edm_tts_tpu_torch.models.codec import Codec, CodecConfig
+    from edm_tts_tpu_torch.models.codec.decoder import DecoderBlock
+    from edm_tts_tpu_torch.models.codec.layers import ResidualUnit
+
+    codec = Codec(CodecConfig(encoder_dim=16, decoder_dim=256, n_codebooks=2, codebook_size=16,
+                              codebook_dim=4), device=dev, dtype=torch.bfloat16)
+    init_random_weights(codec, 0)
+    c32 = copy.deepcopy(codec)
+    c32.encoder.float()
+    c32.decoder.float()
+    c32.dtype = torch.float32
+    c32.pack()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn(2, 3200, 1, generator=gen, device=dev) * 0.3
+    z = torch.randn(2, 10, codec.config.latent_dim, generator=gen, device=dev)
+    w_z = torch.randn(2, 10, codec.config.latent_dim, generator=gen, device=dev)
+    w_a = torch.randn(2, 3200, 1, generator=gen, device=dev)
+
+    def gradients(model):
+        """The input's gradient and those of the kernel-run tensors: every
+        residual unit's, the K2 blocks' snake and transposed conv."""
+        model.zero_grad(set_to_none=True)
+        xg = x.clone().requires_grad_()
+        loss = ((model.encoder(xg).float() * w_z).sum()
+                + (model.decode(z, 3200).float() * w_a).sum())
+        loss.backward()
+        return {"x": xg.grad.float(), **{
+            f"{name}.{p_name}": p.grad.float().clone() for name, m in model.named_modules()
+            if isinstance(m, ResidualUnit) or (isinstance(m, DecoderBlock) and m.fused)
+            for p_name, p in (m.named_parameters() if isinstance(m, ResidualUnit)
+                              else m.block[:2].named_parameters())}}
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    def flat(g):
+        return torch.cat([v.flatten() for v in g.values()])
+
+    reset_launches()
+    with_kernels = gradients(codec)
+    fused = sum(1 for b in codec.decoder.model[1:5] if b.fused)  # the s8, s4 and s2 blocks
+    assert fused == 3 and launches["resunit"] == 24 and launches["decoder_block"] == fused
+    exact = gradients(c32)
+    monkeypatch.setattr(layers_mod, "fused_residual_unit",
+                        lambda x, *p: ops.resunit_reference(x, *p[:-1], dilation=p[-1]))
+    monkeypatch.setattr(decoder_mod, "fused_decoder_block",
+                        lambda x, a0, w3, b3, ru, s: ops.decoder_block_reference(
+                            x, a0, w3, b3, ru, stride=s))
+    reset_launches()
+    plain = gradients(codec)
+    assert all(v == 0 for v in launches.values())
+    assert with_kernels.keys() == plain.keys() == exact.keys()
+    assert any(k.endswith("weight_g") for k in plain)
+    assert rel(flat(with_kernels), flat(plain)) <= 0.02
+    for name, ref in exact.items():
+        assert rel(with_kernels[name], ref) <= 2.0 * rel(plain[name], ref) + 2e-3, name
 
 
 @pytest.mark.parametrize("b,t,h,d", [(2, 37, 3, 24), (1, 130, 2, 64), (2, 701, 8, 24), (1, 5, 1, 40),
