@@ -49,7 +49,11 @@ Phases, each reported on its own line:
      uses the length predictor and the masked canvas; checks shapes, finite
      non-silent audio, codes in range, the kernels' launch counts, and the
      decode against the plain versions; prints the wall seconds per second
-     of audio of (a);
+     of audio of (a); then the Conformer API on the bf16 t2s
+     (``extract_features``, conformer_api_check): ``output_layer_idx`` runs
+     exactly its blocks' K3 launches and gives their output of a full
+     forward, ``return_attn`` launches no kernel and gives row-stochastic
+     f32 maps and a final state within REL_L2_TOL of the kernels';
   5. served path (c): the same models with int8 weights behind TTSEngine,
      DynamicBatcher and TTSServer over HTTP on 127.0.0.1: four concurrent
      requests (one with a given length) and one long request of three
@@ -161,6 +165,18 @@ Phases, each reported on its own line:
      plain bf16 composition, CODEC_GRAD_NOISE_FACTOR), a planted fault of
      K1's backward outside; K1 also at the clip's 24 unit shapes and K2 at
      its two blocks in phase 3.
+ 15. the closed-loop rehearsal (l): ``edm_tts_tpu_torch.closed_loop.run`` at
+     full width in a fresh temporary root (LOOP_*): a seeded LibriSpeech-
+     layout set of 4 x 30 utterances, a seeded f32 HuBERT-large, then
+     through the port's CLIs on the card the codec of CODEC_RECIPE trained
+     to its best_model export, ``hubert_kmeans`` (K 1024), ``dump_tokens``
+     (f32), the t2s and s2a recipes at f32 (6 steps each, the s2a on that
+     codec) and the JAX script's f32 inference with its final wav check;
+     then a bf16 ``--quantize int8 --one_shot`` inference on the same
+     directories; each stage's kernel launches checked exactly, the
+     artifacts (12 codebooks, (1024, 1024) finite centroids, the shards'
+     ranges, both exports, every logged loss finite) and both wavs; prints
+     each stage's wall seconds and the loop's.
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
 There is no CPU fallback: without a CUDA device the script fails.
@@ -178,6 +194,11 @@ K3-with-LSE/K4 and ragged K6 ones (``--attention-kernels``); each
 exits 3 when a case is outside its limits.
 The sources as they are must pass first, and it exits 1 if any fault
 passes.
+
+    python3 chip_smoke.py --closed-loop
+
+builds the kernels and runs only the Conformer API check and path (l);
+it exits 3 when a check fails.
 """
 
 from __future__ import annotations
@@ -370,6 +391,32 @@ CODEC_CLIP_SECONDS = 2.0
 CODEC_GRAD_REL_L2_TOL = 0.02
 CODEC_GRAD_NOISE_FACTOR = 2.0
 CODEC_GRAD_NOISE_FLOOR = 2e-3
+# the Conformer API (extract_features with output_layer_idx and return_attn)
+# on the full-width bf16 t2s: a canvas of API_CANVAS positions in 2 rows, the
+# first with its last API_PAD keys masked; the early exit after block
+# API_LAYER; each attention map's rows sum to 1 within API_ROW_SUM_TOL (f32
+# softmax), and the hidden state of the maps' plain attention agrees with the
+# kernels' within REL_L2_TOL
+API_CANVAS, API_PAD, API_LAYER = 640, 200, 5
+API_ROW_SUM_TOL = 1e-3
+# (l): the closed-loop rehearsal (edm_tts_tpu_torch.closed_loop.run) at full
+# width in a fresh temporary root: LOOP_SPEAKERS x LOOP_UTTS utterances of
+# 3.2-4 s (~21,600 HuBERT frames); HuBERT-large to layer 18 with LOOP_K
+# centroids fitted on LOOP_FRAMES_PER_CLUSTER frames per cluster (the CLI's
+# default is 1000) in closed_loop.NREDO runs (its default is 5; the JAX
+# script's 2);
+# the codec of CODEC_RECIPE for LOOP_CODEC_STEPS steps with its one eval,
+# save and best_model export at the last step, its held-out windows cut to
+# LOOP_SEGMENT_SECONDS (the recipe's 5 s is longer than every utterance); the
+# t2s and s2a recipes at f32 for LOOP_STEPS steps each, the s2a's segment cut
+# from 15.36 s to LOOP_SEGMENT_SECONDS (the JAX script's); then the JAX
+# script's f32 inference with the CLI's 16 + 8 iterations and its length
+# (closed_loop.GT_LENGTH, MAX_SPEECH_LEN), and a bf16 --quantize int8
+# --one_shot run on the same directories
+LOOP_SPEAKERS, LOOP_UTTS = 4, 30
+LOOP_K, LOOP_FRAMES_PER_CLUSTER = 1024, 20
+LOOP_CODEC_STEPS, LOOP_STEPS = 2, 6
+LOOP_SEGMENT_SECONDS = 2.0
 
 KERNELS = {
     "resunit": dict(source="edm_tts_tpu_torch/csrc/resunit.cu",
@@ -558,7 +605,8 @@ FAULT_MODES = {"conv_gemm.cuh": "--codec-kernels", "qdense.cu": "--int8-kernels"
 
 class CheckFailed(SystemExit):
     """A result outside its limit: exit code 1 (3 under ``--attention-kernels``,
-    ``--int8-kernels``, ``--codec-kernels`` and ``--f32-kernels``)."""
+    ``--int8-kernels``, ``--codec-kernels``, ``--f32-kernels`` and
+    ``--closed-loop``)."""
 
 
 def fail(msg: str) -> None:
@@ -1266,6 +1314,28 @@ def block_int8_sites(cfg) -> int:
     return sum(quantizable_shape(k, n) for k, n in shapes)
 
 
+def int8_request_launches(t2s_cfg, s2a_cfg, has_gt: bool, pred_iters: int, steps: int) -> dict:
+    """One bf16 request's launches with int8 t2s and s2a weights and the
+    codec's masked decode: K3 on every attention, K5 on every linear that
+    passes its shape gate, K1 on the decoder's units (the length predictor
+    runs unless the length is given)."""
+    from edm_tts_tpu_torch.ops import quantizable_shape
+
+    main, lp = t2s_cfg.main_encoder_config, t2s_cfg.length_predictor_config
+    enc, h = s2a_cfg.encoder_config, t2s_cfg.hidden_size
+    s2a_passes = (s2a_cfg.injection_layers[0] + 1) * steps + s2a_cfg.encoder_num_layers
+    fine = quantizable_shape(s2a_cfg.hidden_size, s2a_cfg.hidden_size * (
+        s2a_cfg.num_quantizers - len(s2a_cfg.injection_layers)))
+    int8 = (pred_iters * (main.depth * block_int8_sites(main)
+                          + quantizable_shape(h, h)
+                          + quantizable_shape(h, t2s_cfg.semantic_vocab_size))
+            + (0 if has_gt else lp.depth * block_int8_sites(lp))
+            + s2a_passes * block_int8_sites(enc) + fine)
+    attention = (main.depth * pred_iters + (0 if has_gt else lp.depth) + s2a_passes)
+    return no_launches(resunit=3 * len(s2a_cfg.codec.decoder_rates), attention=attention,
+                       int8_dense=int8)
+
+
 def served_path(torch, t2s, s2a, semantic, dev, smi: str, held: set, held_k1: set):
     """(c): the int8 models behind TTSEngine -> DynamicBatcher -> TTSServer.
     ``held``: the (M, K, N) at which the kernel phase held K5 against its
@@ -1285,7 +1355,6 @@ def served_path(torch, t2s, s2a, semantic, dev, smi: str, held: set, held_k1: se
         reset_launches,
         resunit_shapes,
     )
-    from edm_tts_tpu_torch.ops import quantizable_shape
     from edm_tts_tpu_torch.profile_synthesis import (
         PRED_ITERS,
         PROMPT_FRAMES,
@@ -1314,19 +1383,7 @@ def served_path(torch, t2s, s2a, semantic, dev, smi: str, held: set, held_k1: se
     engine.synthesize(["A warm-up request before the server starts."], "spk", gt_lengths=[100])
 
     def expected(has_gt: bool) -> dict:
-        main, lp = t2s_cfg.main_encoder_config, t2s_cfg.length_predictor_config
-        enc, h = s2a_cfg.encoder_config, t2s_cfg.hidden_size
-        s2a_passes = (s2a_cfg.injection_layers[0] + 1) * STEPS + s2a_cfg.encoder_num_layers
-        fine = quantizable_shape(s2a_cfg.hidden_size, s2a_cfg.hidden_size * (
-            s2a_cfg.num_quantizers - len(s2a_cfg.injection_layers)))
-        int8 = (PRED_ITERS * (main.depth * block_int8_sites(main)
-                              + quantizable_shape(h, h)
-                              + quantizable_shape(h, t2s_cfg.semantic_vocab_size))
-                + (0 if has_gt else lp.depth * block_int8_sites(lp))
-                + s2a_passes * block_int8_sites(enc) + fine)
-        attention = (main.depth * PRED_ITERS + (0 if has_gt else lp.depth) + s2a_passes)
-        return no_launches(resunit=3 * len(s2a_cfg.codec.decoder_rates), attention=attention,
-                           int8_dense=int8)
+        return int8_request_launches(t2s_cfg, s2a_cfg, has_gt, PRED_ITERS, STEPS)
 
     calls = []  # (rows, engine wall s, audio s) of each engine call the server makes
     synthesize = engine.synthesize
@@ -1791,10 +1848,12 @@ def free_port() -> int:
 
 def launch_line(out: str) -> dict:
     """The ``kernel launches: {...}`` line a CLI prints on the card."""
-    lines = [line for line in out.splitlines() if line.startswith("kernel launches: ")]
-    if not lines:
+    from edm_tts_tpu_torch.closed_loop import launch_counts
+
+    counts = launch_counts(out)
+    if counts is None:
         fail(f"no 'kernel launches' line in the CLI's output:\n{out[-2000:]}")
-    return json.loads(lines[-1][len("kernel launches: "):])
+    return counts
 
 
 def check_kernels(label: str, counts: dict, ran: tuple, idle: tuple) -> None:
@@ -1857,8 +1916,7 @@ def cli_path(torch, ops, dev, smi: str) -> dict:
     from edm_tts_tpu_torch.utils import hub
 
     root = Path(__file__).resolve().parent
-    sys.path.insert(0, str(root / "tests"))
-    from flac_encoder import encode_flac  # a lossless FLAC writer (numpy only)
+    from edm_tts_tpu_torch.data.flac_encoder import encode_flac
 
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
     procs: list = []
@@ -2459,8 +2517,7 @@ def preprocessing_path(torch, dev, smi: str) -> dict:
     from edm_tts_tpu_torch.utils import hub
 
     root = Path(__file__).resolve().parent
-    sys.path.insert(0, str(root / "tests"))
-    from flac_encoder import encode_flac  # a lossless FLAC writer (numpy only)
+    from edm_tts_tpu_torch.data.flac_encoder import encode_flac
 
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_preprocess_"))
     try:
@@ -2797,8 +2854,7 @@ def codec_training_path(torch, ops, dev, smi: str, held_k1: set) -> dict:
     from edm_tts_tpu_torch.utils import hub
 
     root = Path(__file__).resolve().parent
-    sys.path.insert(0, str(root / "tests"))
-    from flac_encoder import encode_flac  # a lossless FLAC writer (numpy only)
+    from edm_tts_tpu_torch.data.flac_encoder import encode_flac
 
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_codec_"))
     try:
@@ -3045,6 +3101,241 @@ def codec_training_path(torch, ops, dev, smi: str, held_k1: set) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def conformer_api_check(torch, t2s, dev) -> dict:
+    """The Conformer API on the full-width bf16 t2s (``extract_features``):
+    with ``output_layer_idx=API_LAYER`` exactly API_LAYER + 1 K3 launches and
+    the output of block API_LAYER of a full forward (to the bit); with
+    ``return_attn`` no kernel launch, one f32 ``(B, H, T, T)`` map per block
+    whose rows sum to 1 and give masked keys no weight, and the final hidden
+    state within REL_L2_TOL of the kernels' forward. Returns the launches of
+    the early exit."""
+    from edm_tts_tpu_torch.kernels import all_launches, reset_launches
+
+    cfg = t2s.cfg
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    ids = torch.randint(1, cfg.total_num_tokens, (2, API_CANVAS), generator=gen, device=dev)
+    valid = torch.tensor([[API_CANVAS - API_PAD], [API_CANVAS]], device=dev)
+    mask = torch.arange(API_CANVAS, device=dev)[None] < valid
+    ids = torch.where(mask, ids, 0)
+
+    def counted(**kw):
+        reset_launches()
+        out = t2s.extract_features(ids, mask, **kw)
+        torch.cuda.synchronize()
+        return out, all_launches()
+
+    block_out = {}
+    hook = t2s.conformer.layers[API_LAYER].register_forward_hook(
+        lambda module, args, out: block_out.setdefault("x", out.clone()))
+    try:
+        full, counts_full = counted()
+    finally:
+        hook.remove()
+    early, counts_early = counted(output_layer_idx=API_LAYER)
+    (plain, maps), counts_attn = counted(return_attn=True)
+    depth = cfg.main_encoder_num_layers
+    heads = cfg.main_encoder_num_heads
+    shapes_ok = len(maps) == depth and all(
+        m.dtype == torch.float32 and tuple(m.shape) == (2, heads, API_CANVAS, API_CANVAS)
+        for m in maps)
+    row_err = max((m.sum(-1) - 1).abs().max().item() for m in maps)
+    masked_weight = max(m[0, :, :, API_CANVAS - API_PAD:].abs().max().item() for m in maps)
+    rel = rel_l2(torch, plain, full)
+    same = torch.equal(early, block_out["x"])
+    print(f"api: t2s extract_features (bf16, B2 x {API_CANVAS}, row 0 with {API_PAD} keys "
+          f"masked): full forward launches {counts_full}; output_layer_idx={API_LAYER} "
+          f"launches {counts_early}, equal to block {API_LAYER}'s output of the full forward: "
+          f"{same}; return_attn launches {counts_attn}, {len(maps)} maps of "
+          f"{tuple(maps[0].shape)} {maps[0].dtype}, largest |row sum - 1| {row_err:.3g} (tol "
+          f"{API_ROW_SUM_TOL}), largest weight on a masked key {masked_weight:.3g}, final hidden "
+          f"state against the kernels' relative l2 {rel:.4g} (tol {REL_L2_TOL})", flush=True)
+    if (counts_full != no_launches(attention=depth)
+            or counts_early != no_launches(attention=API_LAYER + 1)
+            or counts_attn != no_launches()):
+        fail(f"api: launches {counts_full}, {counts_early}, {counts_attn}")
+    if not (same and shapes_ok and row_err <= API_ROW_SUM_TOL and masked_weight == 0.0
+            and rel <= REL_L2_TOL):
+        fail(f"api: early exit equal {same}, maps {shapes_ok}, row sums {row_err}, masked "
+             f"weight {masked_weight}, hidden state {rel}")
+    return counts_early
+
+
+def closed_loop_path(torch, dev, smi: str) -> dict:
+    """(l): the closed-loop rehearsal at full width (see LOOP_*). Builds the
+    recipes (the codec's CODEC_RECIPE, the t2s's and s2a's of
+    profile_synthesis, each cut as printed) and a seeded f32 HuBERT-large,
+    and runs ``closed_loop.run`` in a fresh temporary root: the seven stages
+    through the port's CLIs on the card, the JAX script's final check on the
+    f32 wav; then a bf16 ``--quantize int8 --one_shot`` inference on the same
+    directories. Checks each stage's kernel launches exactly (the f32 stages
+    only K3-f32, with K4-f32 in the trainers; the bf16 run K1, K2, K3 and
+    K5 as a request of (c) makes them, plus the prompt's tokenization), the
+    codec export (12 codebooks), the centroids, every shard's ranges, both
+    exports, every logged loss finite and the bf16 wav. Returns the
+    launches of all its runs."""
+    import tempfile
+
+    import numpy as np
+
+    from edm_tts_tpu_torch import closed_loop
+    from edm_tts_tpu_torch.data.manifests import librispeech_manifest
+    from edm_tts_tpu_torch.data.pipeline import load_audio_segments
+    from edm_tts_tpu_torch.data.token_shards import iter_token_shards
+    from edm_tts_tpu_torch.models.codec.decoder import DecoderBlock
+    from edm_tts_tpu_torch.profile_synthesis import (
+        PRED_ITERS,
+        STEPS,
+        s2a_train_recipe,
+        t2s_train_recipe,
+    )
+    from edm_tts_tpu_torch.profile_tokenization import full_width_semantic
+    from edm_tts_tpu_torch.utils import hub
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_loop_"))
+    try:
+        t_all = time.perf_counter()
+        loop = str(tmp / "loop")
+        codec_recipe = dict(
+            CODEC_RECIPE, output_dir=f"{loop}/codec", logging_steps=1,
+            max_steps=LOOP_CODEC_STEPS, eval_steps=LOOP_CODEC_STEPS, save_steps=LOOP_CODEC_STEPS,
+            validation_segment_length=LOOP_SEGMENT_SECONDS,
+            dataset_args={"path": "librispeech", "name": "train-clean-100",
+                          "data_dir": f"{loop}/data"})
+        t2s_recipe = dict(t2s_train_recipe(f"{loop}/t2s", f"{loop}/codes", SEED, LOOP_STEPS),
+                          bf16=False)
+        s2a_recipe = dict(s2a_train_recipe(f"{loop}/s2a", f"{loop}/codes", SEED, LOOP_STEPS),
+                          bf16=False, training_segment_length=LOOP_SEGMENT_SECONDS,
+                          acoustic_model_path=f"{loop}/codec/best_model")
+        if not (t2s_recipe["extra_model_params"]["semantic_vocab_size"] == LOOP_K
+                == s2a_recipe["extra_model_params"]["num_semantic_tokens"]):
+            fail("(l): the recipes' semantic vocabulary is not LOOP_K")
+        print(f"loop (l): cuts: codec max_steps {CODEC_RECIPE['max_steps']} -> "
+              f"{LOOP_CODEC_STEPS} (eval and save at {LOOP_CODEC_STEPS}, from "
+              f"{CODEC_RECIPE['eval_steps']} and {CODEC_RECIPE['save_steps']}), "
+              f"validation_segment_length {CODEC_RECIPE['validation_segment_length']} -> "
+              f"{LOOP_SEGMENT_SECONDS} s; hubert_kmeans frames_per_cluster 1000 -> "
+              f"{LOOP_FRAMES_PER_CLUSTER}, nredo 5 -> {closed_loop.NREDO}; t2s and s2a {LOOP_STEPS} "
+              f"steps with a 2-step warmup at f32 (bf16: false), s2a training_segment_length "
+              f"15.36 -> {LOOP_SEGMENT_SECONDS} s; data {LOOP_SPEAKERS} speakers x {LOOP_UTTS} "
+              f"utterances of 3.2-4 s", flush=True)
+        hubert = full_width_semantic(dev, SEED + 170, dtype=torch.float32)
+        depth, hubert_cfg = hubert.output_layer, hubert.config
+        try:
+            result = closed_loop.run(
+                loop, codec_recipe=codec_recipe, t2s_recipe=t2s_recipe, s2a_recipe=s2a_recipe,
+                hubert=hubert, k=LOOP_K, frames_per_cluster=LOOP_FRAMES_PER_CLUSTER,
+                device="cuda", n_speakers=LOOP_SPEAKERS, n_utts=LOOP_UTTS,
+                pred_iters=PRED_ITERS, s2a_steps=STEPS)
+        except (SystemExit, AssertionError) as e:
+            fail(f"(l) the closed loop failed: {e}")
+        del hubert
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the bf16 int8 run on the same three directories
+        prompt = f"{loop}/data/LibriSpeech/train-clean-100/100/1/100-1-0000.flac"
+        bf16_wav = f"{loop}/out_bf16_int8.wav"
+        try:
+            bf16_run = closed_loop.run_stage("7_inference_bf16_int8", [
+                sys.executable, "-m", "edm_tts_tpu_torch.inference", "-s", prompt,
+                "-t", closed_loop.TEXT, "-o", bf16_wav,
+                "--codec_model", f"{loop}/codec/best_model", "--t2s_model", f"{loop}/t2s/export",
+                "--s2a_model", f"{loop}/s2a/export", "--hubert_model", f"{loop}/hubert_semantic",
+                "--max_speech_len", str(closed_loop.MAX_SPEECH_LEN),
+                "--gt_length", str(closed_loop.GT_LENGTH),
+                "--dtype", "bfloat16", "--quantize", "int8", "--one_shot"], loop)
+            bf16_check = closed_loop.check_wav(bf16_wav, closed_loop.GT_LENGTH)
+        except (SystemExit, AssertionError) as e:
+            fail(f"(l) the bf16 int8 inference: {e}")
+
+        # the artifacts
+        codec = hub.load_codec(f"{loop}/codec/best_model", device=dev)
+        codec_bf16 = hub.load_codec(f"{loop}/codec/best_model", device=dev, dtype=torch.bfloat16)
+        fused = sum(1 for m in codec_bf16.decoder.modules()
+                    if isinstance(m, DecoderBlock) and m.fused)
+        levels, codebook = codec.config.n_codebooks, codec.config.codebook_size
+        encoder_units = 3 * len(codec.config.encoder_rates)
+        centers = np.load(hub.find_centroids(f"{loop}/hubert_semantic"))
+        items = list(iter_token_shards(f"{loop}/codes"))
+        bad = [it["id"] for it in items
+               if it["acoustic_tokens"].shape != (levels, it["semantic_tokens"].shape[0])
+               or not 0 <= it["acoustic_tokens"].min() <= it["acoustic_tokens"].max() < codebook
+               or not 0 <= it["semantic_tokens"].min() <= it["semantic_tokens"].max() < LOOP_K]
+        t2s = hub.load_t2s(f"{loop}/t2s/export", device=dev)
+        s2a = hub.load_s2a(f"{loop}/s2a/export", device=dev)
+        t2s_cfg, s2a_cfg = t2s.cfg, s2a.cfg
+        del codec, codec_bf16, t2s, s2a
+        gc.collect()
+        torch.cuda.empty_cache()
+        logged = {d: [json.loads(line) for line in open(f"{loop}/{d}/metrics.jsonl")]
+                  for d in ("codec", "t2s", "s2a")}
+        steps = {d: [r["step"] for r in rs if "train/loss" in r] for d, rs in logged.items()}
+        losses = [v for rs in logged.values() for r in rs for k, v in r.items() if "loss" in k]
+        for d, rs in logged.items():
+            train = [r["train/loss"] for r in rs if "train/loss" in r]
+            evals = [v for r in rs for k, v in r.items() if k.startswith("eval/")]
+            print(f"loop (l) {d} training: train/loss {train}; eval {evals}", flush=True)
+        print(f"loop (l) artifacts: best_model {levels} codebooks of {codebook}; centroids "
+              f"{centers.shape} finite {bool(np.isfinite(centers).all())}; {len(items)} dumped "
+              f"items, out of range: {bad}; exports t2s (vocab {t2s_cfg.semantic_vocab_size}) "
+              f"and s2a ({s2a_cfg.num_semantic_tokens} semantic tokens, a codec of "
+              f"{s2a_cfg.codec.n_codebooks} codebooks); steps logged {steps}; "
+              f"{len(losses)} losses, all finite {all(map(math.isfinite, losses))}; f32 wav "
+              f"{result['wav']}, bf16 int8 wav {bf16_check}", flush=True)
+        if (levels != CODEC_RECIPE["generator_args"]["n_codebooks"]
+                or centers.shape != (LOOP_K, hubert_cfg.hidden_size)
+                or not np.isfinite(centers).all()
+                or len(items) != LOOP_SPEAKERS * LOOP_UTTS or bad
+                or steps != {"codec": list(range(1, LOOP_CODEC_STEPS + 1)),
+                             "t2s": list(range(1, LOOP_STEPS + 1)),
+                             "s2a": list(range(1, LOOP_STEPS + 1))}
+                or not all(map(math.isfinite, losses))):
+            fail("(l): an artifact of the loop is malformed (above)")
+
+        # each stage's launches
+        target = LOOP_K * LOOP_FRAMES_PER_CLUSTER
+        frames = used = 0
+        for ex in librispeech_manifest(f"{loop}/data", "train-clean-100"):
+            samples = min(len(next(load_audio_segments(ex, 16000, None))["audio"]), 30 * 16000)
+            frames += int(hubert_cfg.feature_lengths(samples))
+            used += 1
+            if frames >= target:
+                break
+        t2s_depth = t2s_cfg.main_encoder_num_layers + t2s_cfg.length_predictor_num_layers
+        s2a_passes = s2a_recipe["micro_batches"] * LOOP_STEPS * s2a_cfg.encoder_num_layers
+        request = int8_request_launches(t2s_cfg, s2a_cfg, True, PRED_ITERS, STEPS)
+        want = {
+            "codec_gan_training": no_launches(),
+            "hubert_kmeans": no_launches(attention_f32=depth * used),
+            "dump_tokens": no_launches(attention_f32=depth * -(-len(items) // 4)),
+            "t2s_training": no_launches(attention_f32=t2s_depth * LOOP_STEPS,
+                                        attention_bwd_f32=t2s_depth * LOOP_STEPS),
+            "s2a_training": no_launches(attention_f32=s2a_passes, attention_bwd_f32=s2a_passes),
+            "inference": no_launches(attention_f32=depth + request["attention"]),
+            "inference_bf16_int8": no_launches(
+                resunit=encoder_units + request["resunit"], decoder_block=fused,
+                attention=depth + request["attention"], int8_dense=request["int8_dense"]),
+        }
+        runs = {**{k: result[k] for k in want if k in result}, "inference_bf16_int8": bf16_run}
+        for name, r in runs.items():
+            with open(r["log"]) as f:
+                tail = [line.rstrip() for line in f if not line.startswith("kernel launches")]
+            print(f"loop (l) {name}: {r['seconds']:.2f} s; launches {r['launches']} expected "
+                  f"{want[name]} ({smi}); its log's last lines:\n  " + "\n  ".join(tail[-4:]),
+                  flush=True)
+        wrong = [name for name, r in runs.items() if r["launches"] != want[name]]
+        total = time.perf_counter() - t_all
+        print(f"loop (l): the seven stages in {result['seconds']:.2f} s (stage 0, the data and "
+              f"HuBERT-large written, {result['setup_seconds']:.2f} s), the bf16 int8 run "
+              f"{bf16_run['seconds']:.2f} s, the path {total:.2f} s with its checks ({smi})",
+              flush=True)
+        if wrong:
+            fail(f"(l): the launches of {wrong} differ from the expected (above)")
+        return {name: sum(r["launches"][name] for r in runs.values()) for name in KERNELS}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import argparse
 
@@ -3067,6 +3358,9 @@ def main() -> int:
     mode.add_argument("--f32-kernels", action="store_true",
                       help="only the f32 K3, K4 and K5 cases of the kernel phase; exit 3 when "
                            "one is outside its limits")
+    mode.add_argument("--closed-loop", action="store_true",
+                      help="only the build, the Conformer API check and the closed-loop "
+                           "rehearsal (l); exit 3 when a check fails")
     parser.add_argument("--parent", default=None, metavar="DIR",
                         help="another checkout of this repository whose K2 front (the "
                              "10-argument edm_tconv_phase of before PR 8) to time beside this "
@@ -3129,6 +3423,17 @@ def main() -> int:
     lib_path = build.build()
     build.library()
     print(f"build: {lib_path.name} in {time.perf_counter() - t0:.2f} s", flush=True)
+
+    if args.closed_loop:
+        try:
+            conformer_api_check(torch, full_width_models(dev, SEED)[0], dev)
+            gc.collect()
+            torch.cuda.empty_cache()
+            closed_loop_path(torch, dev, smi)
+        except CheckFailed as e:
+            print(e.code, file=sys.stderr, flush=True)
+            return 3
+        return 0
 
     # 3. kernels against their plain versions
     cases = kernel_phase(torch, ops, parent_front=parent_front, parent_f32=parent_f32)
@@ -3239,6 +3544,9 @@ def main() -> int:
     _, t_dec = timed(lambda: s2a.decode_audio(codes))
     print(f"e2e (a) stages: t2s {t_t2s:.4f} s, s2a {t_s2a:.4f} s, decode {t_dec:.4f} s", flush=True)
 
+    # the Conformer API on the bf16 t2s: the early exit and the attention maps
+    counts_api = conformer_api_check(torch, t2s, dev)
+
     # 5. (c) the served path with int8 weights (quantizes the models in place),
     # its engine holding (g)'s HuBERT-large
     t0 = time.perf_counter()
@@ -3286,10 +3594,15 @@ def main() -> int:
 
     # 14. (k) codec GAN training, the export's bf16 round trip, K1/K2 gradients
     counts_k = codec_training_path(torch, ops, dev, smi, held_k1)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 15. (l) the closed-loop rehearsal at full width through the port's CLIs
+    counts_l = closed_loop_path(torch, dev, smi)
 
     by_path = {"a": counts_a, "b": counts_b, "c": counts_c, "g": counts_g, "h": counts_h,
                "d": counts_d, "e": counts_e, "f": counts_f, "i": counts_i, "j": counts_j,
-               "k": counts_k}
+               "k": counts_k, "l": counts_l, "api": counts_api}
     record = {"kernels": []}
     for name in KERNELS:
         cs = cases[name]

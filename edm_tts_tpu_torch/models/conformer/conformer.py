@@ -16,9 +16,12 @@ defaults and are kept from the JAX package:
   from ``dim`` (the t2s model runs 8 x 24 = 192 inside a width of 384).
 
 Attention goes through ``ops.mha``: kernel K3 on the card, and K4 in the
-backward when a gradient is needed. The linears and the pointwise convs are
-the JAX package's ``QDense`` sites: ``models/quantize.py`` swaps them for
-``QLinear`` (kernel K5 on the card).
+backward when a gradient is needed; with ``return_attn`` (per-block
+attention maps) it is the JAX ``Attention``'s plain einsum instead, which
+gives the map. ``Conformer.forward`` also takes ``output_layer_idx``, the
+JAX package's early exit after that block. The linears and the pointwise
+convs are the JAX package's ``QDense`` sites: ``models/quantize.py`` swaps
+them for ``QLinear`` (kernel K5 on the card).
 
 Dropout (the JAX package's ``train=True``) is on when a forward is given a
 ``dropout_generator``; its masks come from that generator. It sits where
@@ -138,7 +141,10 @@ class Attention(nn.Module):
         self.to_kv = nn.Linear(dim, 2 * inner, bias=False, **kw)
         self.to_out = nn.Linear(inner, dim, **kw)
 
-    def forward(self, x, *, rope=None, mask=None):
+    def forward(self, x, *, rope=None, mask=None, return_attn=False):
+        """``return_attn``: ``(out, attn)`` with the ``(B, H, T, T)`` f32 map,
+        computed outside the kernels as the JAX ``Attention`` does (the
+        reference's einsum fallback)."""
         b, t, _ = x.shape
         shape = (b, t, self.heads, self.dim_head)
         q = self.to_q(x).view(shape)
@@ -146,9 +152,16 @@ class Attention(nn.Module):
         if rope is not None:
             q = apply_rope(rope[:, None, :], q)
             k = apply_rope(rope[:, None, :], k)
-        out = mha(q.contiguous(), k.contiguous(), v.contiguous(), mask=mask,
-                  implementation=self.implementation)
-        return self.to_out(out.reshape(b, t, -1))
+        if not return_attn:
+            out = mha(q.contiguous(), k.contiguous(), v.contiguous(), mask=mask,
+                      implementation=self.implementation)
+            return self.to_out(out.reshape(b, t, -1))
+        sim = torch.einsum("bihd,bjhd->bhij", q, k) * self.dim_head ** -0.5
+        if mask is not None:
+            sim = torch.where(mask[:, None, None, :], sim, -1e9)
+        attn = torch.softmax(sim.float(), dim=-1)
+        out = torch.einsum("bhij,bjhd->bihd", attn.to(q.dtype), v)
+        return self.to_out(out.reshape(b, t, -1)), attn
 
 
 class ChanLayerNorm(nn.Module):
@@ -228,12 +241,18 @@ class ConformerBlock(nn.Module):
             c.dim, FeedForward(c.dim, c.ff_mult, c.ff_dropout, **kw), **kw))
         self.post_norm = nn.LayerNorm(c.dim, eps=LN_EPS, **kw)
 
-    def forward(self, x, *, rope=None, mask=None, conv_pad_mask=None, dropout_generator=None):
+    def forward(self, x, *, rope=None, mask=None, conv_pad_mask=None, dropout_generator=None,
+                return_attn=False):
+        """``return_attn``: ``(x, attn)``, the attention's map beside the output."""
         x = x + self.ff1(x, dropout_generator=dropout_generator)
-        x = x + self.attn(x, rope=rope, mask=mask)
+        out = self.attn(x, rope=rope, mask=mask, return_attn=return_attn)
+        if return_attn:
+            out, weights = out
+        x = x + out
         x = x + self.conv(x, pad_mask=conv_pad_mask, dropout_generator=dropout_generator)
         x = x + self.ff2(x, dropout_generator=dropout_generator)
-        return self.post_norm(x)
+        x = self.post_norm(x)
+        return (x, weights) if return_attn else x
 
 
 def _saved_ops(policy: str) -> list | None:
@@ -293,12 +312,24 @@ class Conformer(nn.Module):
         self.layers = nn.ModuleList(
             ConformerBlock(cfg, device=device, dtype=dtype) for _ in range(cfg.depth))
 
-    def forward(self, x, *, mask=None, conv_pad_mask=None, dropout_generator=None):
+    def forward(self, x, *, mask=None, conv_pad_mask=None, dropout_generator=None,
+                output_layer_idx=None, return_attn=False):
         """``dropout_generator`` turns dropout on (training) and draws its
         masks; with ``cfg.remat`` each block is checkpointed while autograd
-        records."""
+        records. ``output_layer_idx=i`` returns block i's output and runs no
+        later block; ``return_attn`` returns ``(x, [each block's (B, H, T, T)
+        map])`` and calls the blocks outside ``remat_block``, as the JAX
+        package does."""
         rope = rope_frequencies(x.shape[-2], self.cfg.dim_head, device=x.device)
-        for block in self.layers:
-            x = apply_block(block, x, self.cfg, rope=rope, mask=mask,
-                            conv_pad_mask=conv_pad_mask, dropout_generator=dropout_generator)
-        return x
+        kw = dict(rope=rope, mask=mask, conv_pad_mask=conv_pad_mask,
+                  dropout_generator=dropout_generator)
+        attns = [] if return_attn else None
+        for i, block in enumerate(self.layers):
+            if return_attn:
+                x, attn = block(x, return_attn=True, **kw)
+                attns.append(attn)
+            else:
+                x = apply_block(block, x, self.cfg, **kw)
+            if i == output_layer_idx:
+                break
+        return (x, attns) if return_attn else x

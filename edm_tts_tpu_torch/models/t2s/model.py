@@ -56,6 +56,14 @@ class TextToSemantic(nn.Module):
                              dropout_generator=dropout_generator)
         return self.pred_head(self.pred_transform(out))
 
+    def extract_features(self, input_ids, attention_mask=None, output_layer_idx=None,
+                         return_attn=False):
+        """Main-encoder hidden states ``(B, L, H)`` of joint-vocab ids, to
+        block ``output_layer_idx`` when given; with ``return_attn`` also the
+        per-block attention maps (``Conformer.forward``)."""
+        return self.conformer(self.embed(input_ids), mask=attention_mask,
+                              output_layer_idx=output_layer_idx, return_attn=return_attn)
+
     def predict_log_length(self, text_ids, text_mask=None, *, mask_conv: bool = False,
                            dropout_generator=None):
         """[LEN] + text embeddings -> predicted log speech length ``(B,)``."""

@@ -22,7 +22,6 @@ from __future__ import annotations
 import math
 
 import numpy as np
-from scipy.signal import lfilter
 
 
 def _high_shelf(fs: float, f0: float = 1681.9744509555319, gain_db: float = 3.99984385397, q: float = 0.7071752369554196):
@@ -54,6 +53,8 @@ def _high_pass(fs: float, f0: float = 38.13547087602444, q: float = 0.5003270373
 
 def k_weight(audio: np.ndarray, sample_rate: int) -> np.ndarray:
     """Apply the BS.1770 K-weighting pre-filter chain along the last axis."""
+    from scipy.signal import lfilter  # seconds to import: not at a CLI's start-up
+
     b1, a1 = _high_shelf(sample_rate)
     b2, a2 = _high_pass(sample_rate)
     y = lfilter(b1, a1, audio, axis=-1)

@@ -24,25 +24,20 @@ parsed recipe, for callers without PyYAML.
 
 from __future__ import annotations
 
-import argparse
 import contextlib
 import dataclasses
-import json
 import os
-import sys
 
 import numpy as np
 import torch
 
 from edm_tts_tpu_torch.convert import init_random_weights
-from edm_tts_tpu_torch.kernels import all_launches
 from edm_tts_tpu_torch.models.codec import Codec, CodecConfig
 from edm_tts_tpu_torch.models.codec.discriminator import Discriminator, DiscriminatorConfig
 from edm_tts_tpu_torch.models.codec.losses import ReconstructionLoss
 from edm_tts_tpu_torch.ops.precision import exact_f32
+from edm_tts_tpu_torch.train.cli import recipe_cli
 from edm_tts_tpu_torch.train.gan_trainer import GANTrainer, GANTrainingArguments
-from edm_tts_tpu_torch.utils.config import load_yaml
-from edm_tts_tpu_torch.utils.logging import setup_logging
 
 
 @dataclasses.dataclass
@@ -180,20 +175,8 @@ def main_from_dict(raw: dict, *, device="cuda") -> GANTrainer | None:
 
 
 def main(argv: list[str] | None = None) -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("config", help="the training YAML (configs/dac/train_config.yaml)")
-    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    args = ap.parse_args(sys.argv[1:] if argv is None else argv)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        ap.error(f"--device {args.device}: no CUDA device here (pass --device cpu to run on "
-                 "the CPU)")
-    setup_logging()
-    main_from_dict(load_yaml(args.config), device=device)
-    if device.type == "cuda":
-        torch.cuda.synchronize()
-        print(f"peak device memory: {torch.cuda.max_memory_allocated(device)} bytes", flush=True)
-        print(f"kernel launches: {json.dumps(all_launches())}", flush=True)
+    recipe_cli(__doc__.split("\n\n")[0], "the training YAML (configs/dac/train_config.yaml)",
+               main_from_dict, argv)
 
 
 if __name__ == "__main__":

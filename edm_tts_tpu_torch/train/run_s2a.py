@@ -1,7 +1,8 @@
 """Semantic->acoustic (injection Conformer) training on one CUDA card (port
 of run_semantic_to_acoustic_training.py).
 
-    python -m edm_tts_tpu_torch.train.run_s2a configs/injection_conformer/train_config.yaml
+    python -m edm_tts_tpu_torch.train.run_s2a configs/injection_conformer/train_config.yaml \
+        [--device cuda|cpu]
 
 The same YAML as the JAX entry point: the base ``S2AConfig`` overridden by
 ``extra_model_params`` (with the reference's nested ``encoder_config``
@@ -17,6 +18,9 @@ Weights: a seeded random init (``seed``), with the frozen codec loaded from
 ``acoustic_model_path`` and the whole model from ``warm_start_model`` when
 they are given (directories written by ``train.export``).
 ``main_from_dict`` takes the parsed recipe, for callers without PyYAML.
+``--device`` (default ``cuda``; without a card the run exits 2 unless
+given ``--device cpu``); on the card the run ends with the peak device
+memory and the kernel launches (``train.cli.recipe_cli``).
 """
 
 from __future__ import annotations
@@ -27,7 +31,6 @@ import itertools
 import logging
 import os
 import random
-import sys
 import time
 
 import torch
@@ -38,11 +41,10 @@ from edm_tts_tpu_torch.data.pipeline import crop_code_example, shuffle_buffer
 from edm_tts_tpu_torch.data.token_shards import iter_reference_pt_shards, iter_token_shards
 from edm_tts_tpu_torch.models.s2a import InjectionConformer, S2AConfig
 from edm_tts_tpu_torch.ops.precision import exact_f32
+from edm_tts_tpu_torch.train.cli import recipe_cli
 from edm_tts_tpu_torch.train.export import load_codec, load_state, save_s2a
 from edm_tts_tpu_torch.train.optim import freeze_submodule
 from edm_tts_tpu_torch.train.trainer import Trainer, TrainingArguments
-from edm_tts_tpu_torch.utils.config import load_yaml
-from edm_tts_tpu_torch.utils.logging import setup_logging
 
 logger = logging.getLogger(__name__)
 
@@ -59,20 +61,27 @@ ENCODER_FIELDS = (
 
 
 def code_batch_iterator(shard_dir, segment_frames, batch_size, seed, use_pt=False):
-    """Endless batches of aligned random crops, reshuffled every epoch."""
+    """Endless batches of aligned random crops, reshuffled every epoch.
+    Raises where a whole pass over the shards gives no crop (every item
+    shorter than ``segment_frames``), which would otherwise loop forever."""
     rng = random.Random(seed)
     epoch = 0
     buf = []
     while True:
         it = (iter_reference_pt_shards if use_pt else iter_token_shards)(shard_dir)
+        cropped = False
         for ex in shuffle_buffer(it, 1000, seed=seed + epoch):
             crop = crop_code_example(ex, segment_frames, rng)
             if crop is None:
                 continue
+            cropped = True
             buf.append(crop)
             if len(buf) == batch_size:
                 yield collate_s2a(buf)
                 buf = []
+        if not cropped:
+            raise ValueError(f"no item under {shard_dir} is {segment_frames} frames long: "
+                             "shorten training_segment_length")
         epoch += 1
 
 
@@ -195,11 +204,8 @@ def main_from_dict(raw: dict, *, device="cuda") -> Trainer | None:
 
 
 def main(argv: list[str] | None = None) -> None:
-    argv = sys.argv[1:] if argv is None else argv
-    if len(argv) != 1:
-        raise SystemExit("usage: python -m edm_tts_tpu_torch.train.run_s2a <config.yaml>")
-    setup_logging()
-    main_from_dict(load_yaml(argv[0]))
+    recipe_cli(__doc__.split("\n\n")[0], "the training YAML "
+               "(configs/injection_conformer/train_config.yaml)", main_from_dict, argv)
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
 """Text->semantic (with length predictor) training on one CUDA card (port
 of run_text_to_semantic_training.py).
 
-    python -m edm_tts_tpu_torch.train.run_t2s configs/text_to_semantic_w_length/train_config.yaml
+    python -m edm_tts_tpu_torch.train.run_t2s configs/text_to_semantic_w_length/train_config.yaml \
+        [--device cuda|cpu]
 
 The same YAML as the JAX entry point: the base ``T2SConfig`` overridden by
 ``extra_model_params``; text + semantic token shards (``dataset_args``),
@@ -20,7 +21,8 @@ directory at the end (``<output_dir>/export``).
 Each micro-batch weighs 1 in gradient accumulation (the loss function
 gives no ``loss_weight``), as in the JAX trainer. Weights: a seeded
 random init (``seed``). ``main_from_dict`` takes the parsed recipe, for
-callers without PyYAML.
+callers without PyYAML. ``--device`` and the lines printed on the card are
+``train.cli.recipe_cli``'s.
 """
 
 from __future__ import annotations
@@ -28,7 +30,6 @@ from __future__ import annotations
 import itertools
 import logging
 import os
-import sys
 import time
 
 import torch
@@ -38,11 +39,10 @@ from edm_tts_tpu_torch.data.collators import collate_t2s, length_bucketed, t2s_f
 from edm_tts_tpu_torch.data.pipeline import shuffle_buffer
 from edm_tts_tpu_torch.data.token_shards import iter_reference_pt_shards, iter_token_shards
 from edm_tts_tpu_torch.models.t2s import T2SConfig, TextToSemantic
+from edm_tts_tpu_torch.train.cli import recipe_cli
 from edm_tts_tpu_torch.train.export import save_t2s
 from edm_tts_tpu_torch.train.run_s2a import precision, training_arguments
 from edm_tts_tpu_torch.train.trainer import Trainer
-from edm_tts_tpu_torch.utils.config import load_yaml
-from edm_tts_tpu_torch.utils.logging import setup_logging
 
 logger = logging.getLogger(__name__)
 
@@ -54,13 +54,21 @@ T2S_DEFAULTS = dict(output_dir="exp/edm_tts/text_to_semantic_w_length", max_step
 
 
 def t2s_batch_iterator(shard_dir, batch_size, seed, use_pt=False):
-    """Endless collated batches, reshuffled and rebucketed every epoch."""
+    """Endless collated batches, reshuffled and rebucketed every epoch.
+    Raises where a whole pass over the shards gives no batch (fewer than
+    ``batch_size`` items pass ``t2s_filter``), which would otherwise loop
+    forever."""
     epoch = 0
     while True:
         it = (iter_reference_pt_shards if use_pt else iter_token_shards)(shard_dir)
         filtered = (ex for ex in shuffle_buffer(it, 2000, seed=seed + epoch) if t2s_filter(ex))
+        batched = False
         for group in length_bucketed(filtered, batch_size, seed=seed + epoch):
+            batched = True
             yield collate_t2s(group)
+        if not batched:
+            raise ValueError(f"fewer than {batch_size} items under {shard_dir} pass t2s_filter: "
+                             "lower per_device_train_batch_size")
         epoch += 1
 
 
@@ -133,11 +141,8 @@ def main_from_dict(raw: dict, *, device="cuda") -> Trainer | None:
 
 
 def main(argv: list[str] | None = None) -> None:
-    argv = sys.argv[1:] if argv is None else argv
-    if len(argv) != 1:
-        raise SystemExit("usage: python -m edm_tts_tpu_torch.train.run_t2s <config.yaml>")
-    setup_logging()
-    main_from_dict(load_yaml(argv[0]))
+    recipe_cli(__doc__.split("\n\n")[0], "the training YAML "
+               "(configs/text_to_semantic_w_length/train_config.yaml)", main_from_dict, argv)
 
 
 if __name__ == "__main__":
