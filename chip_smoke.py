@@ -41,7 +41,11 @@ Phases, each reported on its own line:
      and a second call equal to the bit); with ``--parent-f32 DIR``,
      another checkout's K3-f32 and K4-f32 timed beside; K1 and K3 also at
      path (j)'s dump shapes (the encoder's 12 units at B8 x 960160 samples,
-     HuBERT at B8 T3000 with a ragged key mask);
+     HuBERT at B8 T3000 with a ragged key mask); the ring attention's steps
+     on one card (RING_SHAPES x RING_SIZES, a row without valid keys: K3
+     with its LSE per key chunk merged in f32, K4 per chunk with the merged
+     output and LSE) against the same steps through the plain versions and
+     against one whole-sequence K3 / K4 call;
   4. end to end: full-width models (the default codec and s2a, the t2s of
      bench.py; edm_tts_tpu_torch/profile_synthesis.py builds them) from a
      seeded random init in bf16 answer (a) a 10 s request with a given
@@ -177,6 +181,20 @@ Phases, each reported on its own line:
      artifacts (12 codebooks, (1024, 1024) finite centroids, the shards'
      ranges, both exports, every logged loss finite) and both wavs; prints
      each stage's wall seconds and the loop's.
+ 16. the multi-device layer (m): ``python -m torch.distributed.run
+     --nproc_per_node 1 chip_smoke.py --dp-step DIR`` (one NCCL rank,
+     dp_step_worker): (d)'s s2a recipe at full width through the
+     data-parallel ``Trainer`` (ZeRO-2 ``AdamW``: NCCL's reduce-scatter and
+     all-gather on the card) for DP_STEPS steps, the first against the
+     one-process ``Trainer`` on the same batch and init (loss and
+     parameters), 64 K3 and 64 K4 launches a step; prints step seconds and
+     peak memory; then two engine replicas on this card (``mesh=[dev,
+     dev]``, bucket 2) in bf16 and f32, float and int8 weights: twice one
+     engine's launches; the audio equal to the bit to a witness
+     (``replica_witness``: the replicas' parts run one after another on
+     one engine's models through ``t2s_sample``/``s2a_sample`` with each
+     part's ``row_offset``) and, but for bf16 with float weights, to one
+     engine's; bf16 with float weights prints its gap to one engine.
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
 There is no CPU fallback: without a CUDA device the script fails.
@@ -218,6 +236,10 @@ import time
 from pathlib import Path
 
 SEED = 0
+# the ring attention's cases of phase 3: the s2a training micro-batch and a
+# ragged length padded to the ring, over rings of RING_SIZES
+RING_SHAPES = ((8, 768, 16, 64), (4, 701, 16, 64))
+RING_SIZES = (2, 4)
 # Kernel against plain version: the relative l2 error ||out - ref|| / ||ref||
 # must stay under REL_L2_TOL. Kernel and plain version round intermediates
 # to bf16 at different points, which leaves ~0.3 % (K1, K2) to ~0.6 % (K3)
@@ -685,6 +707,7 @@ def kernel_phase(torch, ops, part: str | None = None, parent_front=None,
     """
     import torch.nn.functional as F
 
+    from edm_tts_tpu_torch.ops import ring_attention
     from edm_tts_tpu_torch.ops.attn_variants import BLOCK_Q, VARIANTS, attn_variant_reference
     from edm_tts_tpu_torch.profile_attention_f32 import CASES as ATTENTION_F32_CASES
     from edm_tts_tpu_torch.profile_attention_f32 import TRAIN_CASES as ATTENTION_TRAIN_CASES
@@ -1012,6 +1035,92 @@ def kernel_phase(torch, ops, part: str | None = None, parent_front=None,
                 fail(f"{label}: K4 wrote non-zero dk or dv at padded keys")
             print(f"kernel attention_bwd {label}: dk and dv exactly 0 at "
                   f"{int((~mask).sum())} padded keys", flush=True)
+    # the ring attention's steps (ops/ring_attention.py) on one card: q
+    # against n = 2 and 4 key chunks, K3 with its LSE per chunk merged by
+    # the LSEs in f32, then K4 per chunk with the merged output and LSE
+    # (chunked_mha / chunked_mha_bwd, what the ranks of a ring compute
+    # together), at the s2a training shape and a ragged one padded to the
+    # ring, a key mask with ragged rows and a row without any valid key.
+    # Held against the same steps through the plain versions (the limits
+    # above) and against one whole-sequence K3 / K4 call (printed beside the
+    # same limits); bound and library as the whole attention's.
+    for (b, t, h, d), n in itertools.product(RING_SHAPES if part in (None, "attention") else (),
+                                             RING_SIZES):
+        q, k, v, g = (normal(b, t, h, d).to(bf16) for _ in range(4))
+        lens = [t - 37 * i for i in range(b - 1)] + [0]  # the last row: no valid key
+        mask = torch.arange(t, device=dev)[None] < torch.tensor(lens, device=dev)[:, None]
+        label = f"ring of {n} B{b} T{t} H{h} D{d}, a row without keys"
+        key_work = sum(x or t for x in lens) * t * h * d  # the keyless row: every key
+        elems = b * t * h * d
+        exps = b * t * t * h
+
+        def plain_attend(q, k, v, mask=None, return_lse=True):
+            return (ops.mha_reference(q, k, v, mask=mask),
+                    ops.attention_lse_reference(q, k, mask=mask))
+
+        def ring_fwd(attend=ops.flash_mha, n=n, mask=mask):
+            o, lse = ring_attention.chunked_mha(q, k, v, mask, n, attend=attend)
+            return o, lse.reshape(b * h, t)
+
+        blk = -(-t // n)
+
+        def last_chunk_dropped():
+            keep = mask.clone()
+            keep[:, (n - 1) * blk:] = False
+            keep[-1] = False
+            return ring_fwd(plain_attend, mask=keep)
+
+        qt, kt, vt = (z.transpose(1, 2).contiguous().requires_grad_() for z in (q, k, v))
+        gt = g.transpose(1, 2).contiguous()
+        sdpa_mask = mask[:, None, None, :]
+
+        def sdpa_fwd():
+            with torch.enable_grad():
+                return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=sdpa_mask)
+
+        def sdpa_fwd_bwd():
+            with torch.enable_grad():
+                return torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), gt)
+
+        compare("attention", label, ring_fwd, lambda: ring_fwd(plain_attend),
+                {"last key chunk dropped": last_chunk_dropped},
+                (4 * key_work, 4 * elems * 2 + b * t + b * h * t * 4, exps),
+                ("scaled_dot_product_attention, inputs requiring grad", sdpa_fwd))
+        o, lse = ring_attention.chunked_mha(q, k, v, mask, n)
+        whole_o, whole_lse = ops.flash_mha(q, k, v, mask=mask, return_lse=True)
+        err_o = (o.float() - whole_o.float()).abs().max().item()
+        err_lse = (lse.reshape(b * h, t) - whole_lse).abs().max().item()
+        tol_o = MAX_ABS_TOL * whole_o.float().abs().max().item()
+        print(f"kernel attention {label}: against one whole-sequence K3 call max abs err "
+              f"{err_o:.4g} (tol {tol_o:.4g}), LSE {err_lse:.4g} (tol {LSE_ABS_TOL})", flush=True)
+        if not (err_o <= tol_o and err_lse <= LSE_ABS_TOL):
+            fail(f"{label}: the merged ring differs from whole-sequence K3")
+
+        def ring_bwd(grads=ops.flash_mha_bwd, o=o, g=g):
+            return ring_attention.chunked_mha_bwd(q, k, v, mask, o, lse, g, n, grads=grads)
+
+        def last_chunk_grads_dropped():
+            dq, dk, dv = ring_bwd(ops.flash_mha_bwd_reference)
+            dk, dv = dk.clone(), dv.clone()
+            dk[:, (n - 1) * blk:] = 0
+            dv[:, (n - 1) * blk:] = 0
+            return dq, dk, dv
+
+        compare("attention_bwd", label, ring_bwd, lambda: ring_bwd(ops.flash_mha_bwd_reference),
+                {"delta dropped": lambda: ring_bwd(ops.flash_mha_bwd_reference,
+                                                   o=torch.zeros_like(o)),
+                 "last key chunk's dk and dv dropped": last_chunk_grads_dropped},
+                (10 * key_work, 8 * elems * 2 + b * h * t * 4 + b * t, exps),
+                ("scaled_dot_product_attention backward", sdpa_fwd_bwd, sdpa_fwd))
+        whole = ops.flash_mha_bwd(q, k, v, mask, whole_o, whole_lse, g)
+        errs = [(x.float() - y.float()).abs().max().item() for x, y in zip(ring_bwd(), whole)]
+        tols = [MAX_ABS_TOL * y.float().abs().max().item() for y in whole]
+        print(f"kernel attention_bwd {label}: against one whole-sequence K4 call max abs err "
+              f"dq/dk/dv {[round(e, 6) for e in errs]} (tol {[round(x, 6) for x in tols]})",
+              flush=True)
+        if not all(e <= x for e, x in zip(errs, tols)):
+            fail(f"{label}: the ring's K4 steps differ from whole-sequence K4")
+
     # K6: each variant at each query tile, at the ablation's shape (B32
     # T1408 H16 D24; not under --attention-kernels) and at two ragged ones.
     # The library call is SDPA (the full softmax) on the (B, H, T, D) layout.
@@ -3336,6 +3445,255 @@ def closed_loop_path(torch, dev, smi: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+DP_STEPS = 3  # path (m): the one-rank torchrun run's ZeRO-2 steps
+DP_TIMEOUT_S = 420
+# path (m)'s first DP step against the plain Trainer's: the loss to a
+# relative DP_LOSS_REL_TOL, the parameters to PARAM_TOL of
+# tests/test_torch_s2a_train.py (atol and rtol 1e-6)
+DP_LOSS_REL_TOL = 1e-6
+DP_PARAM_ATOL = DP_PARAM_RTOL = 1e-6
+# path (m)'s engine replicas: equal to the bit to replica_witness, and to
+# one engine but for bf16 with float weights, whose share of audio samples
+# within REPLICA_SAMPLE_TOL of the largest magnitude is printed
+REPLICA_SAMPLE_TOL = 2.0 ** -5
+REPLICA_GT = (500, 400)
+
+
+def dp_step_worker(out_dir: str) -> int:
+    """Path (m)'s process under ``torchrun --nproc_per_node 1``: one NCCL
+    rank. The s2a recipe of (d) at full width (B32 x 768, bf16, 4
+    micro-batches): one step of the one-process ``Trainer`` (``local_mesh``)
+    from the seeded init, then the same init through the data-parallel
+    ``Trainer`` (ZeRO-2 ``AdamW`` over the NCCL group: its reduce-scatter
+    and all-gather on the card) for DP_STEPS steps, the first on the same batch. Writes what it
+    measured to ``out_dir/dp.json``; exits 1 when a check fails."""
+    import torch
+
+    from edm_tts_tpu_torch.kernels import all_launches, build, reset_launches
+    from edm_tts_tpu_torch.parallel import dist as pdist
+    from edm_tts_tpu_torch.parallel.mesh import local_mesh
+    from edm_tts_tpu_torch.profile_synthesis import s2a_train_recipe
+    from edm_tts_tpu_torch.train import run_s2a
+    from edm_tts_tpu_torch.train.trainer import Trainer
+
+    dev = pdist.initialize("cuda")
+    backend = torch.distributed.get_backend()
+    build.library()
+    raw = s2a_train_recipe(os.path.join(out_dir, "dp"), os.path.join(out_dir, "shards"), SEED,
+                           DP_STEPS)
+    model = run_s2a.build_model(raw, dev)
+    cfg = model.cfg
+    frames = int(raw["training_segment_length"] * cfg.codec.sample_rate / cfg.codec.hop_length)
+    batches = list(itertools.islice(run_s2a.code_batch_iterator(
+        os.path.join(out_dir, "shards"), frames, raw["per_device_train_batch_size"], SEED),
+        DP_STEPS))
+    _, loss_fn = run_s2a.s2a_loss(model, bf16=True)
+    initial = {k: v.clone() for k, v in model.state_dict().items()}
+    plain = Trainer(run_s2a.training_arguments({**raw, "output_dir": os.path.join(
+        out_dir, "plain")}), model, loss_fn, device=dev, mesh=local_mesh())
+    plain_loss = plain.train_step(batches[0], 0)["loss"].item()
+    plain_params = {n: p.detach().clone() for n, p in plain.optimizer.named}
+    del plain
+    model.load_state_dict(initial)
+    del initial
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(run_s2a.training_arguments(raw), model, loss_fn, device=dev)
+    out = {"backend": backend, "world": trainer.mesh.world, "mesh": trainer.mesh.shape,
+           "sharded": trainer.optimizer.fsdp is not None, "plain_loss": plain_loss,
+           "moments": trainer.optimizer.mu.numel(),
+           "step_s": [], "losses": [], "counts": []}
+    for i, batch in enumerate(batches):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = trainer.train_step(batch, i)
+        torch.cuda.synchronize()
+        out["step_s"].append(time.perf_counter() - t0)
+        out["counts"].append(all_launches())
+        out["losses"].append(metrics["loss"].item())
+        if i == 0:
+            errs = {n: (p.detach() - plain_params[n]).abs().max().item()
+                    for n, p in trainer.optimizer.named}
+            out["param_max_abs_err"] = max(errs.values())
+            out["params_within_tol"] = all(bool(((p.detach() - plain_params[n]).abs() <= (
+                DP_PARAM_ATOL + DP_PARAM_RTOL * plain_params[n].abs())).all())
+                for n, p in trainer.optimizer.named)
+            del plain_params
+            # the first step's peak holds the comparison's copy of the
+            # parameters; the later steps' is the data-parallel step's own
+            out["peak_first_bytes"] = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    with open(os.path.join(out_dir, "dp.json"), "w") as f:
+        json.dump(out, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def replica_witness(torch, engine, texts, speaker: str, seed: int, gt_lengths,
+                    parts: int) -> list:
+    """What ``parts`` replicas of ``engine`` must give, without its replica
+    code: on the engine's own models, one part after another, each part's
+    rows through ``t2s_sample`` and ``s2a_sample`` with the request's seed
+    and the part's first row as ``row_offset``, the s2a canvas from every
+    row, then the codec's decode (the engine's synthesis, written out)."""
+    from edm_tts_tpu_torch.models.s2a import s2a_sample
+    from edm_tts_tpu_torch.models.t2s import t2s_sample
+    from edm_tts_tpu_torch.utils.bucketing import bucket_length
+
+    dev = engine.device
+    seqs = [[c + 5 for c in t.encode("utf-8")] for t in texts]
+    width = bucket_length(max(len(q) for q in seqs), engine.text_bucket)
+    tokens = torch.tensor([q + [0] * (width - len(q)) for q in seqs], device=dev)
+    lengths = torch.tensor([len(q) for q in seqs], device=dev)
+    gt = torch.tensor(list(gt_lengths), device=dev)
+    rows = len(texts) // parts
+    prompt = engine.prompt(speaker)
+    stage1, audio = [], []
+    with torch.no_grad():
+        for i in range(parts):
+            part = slice(i * rows, (i + 1) * rows)
+            generator = torch.Generator().manual_seed(seed)
+            stage1.append((t2s_sample(
+                engine.t2s, tokens[part], lengths[part], generator,
+                pred_iters=engine.pred_iters, temperature=engine.temperature,
+                max_speech_len=engine.max_speech_len, gt_length=gt[part],
+                row_offset=i * rows), generator))
+        n_max = bucket_length(int(max(out["lengths"].max() for out, _ in stage1)),
+                              engine.length_bucket, engine.max_speech_len)
+        pa, ps = prompt.acoustic_codes, prompt.semantic_codes
+        for i, (out, generator) in enumerate(stage1):
+            valid = torch.arange(n_max, device=dev)[None, :] < out["lengths"][:, None]
+            codes = s2a_sample(
+                engine.s2a, out["semantic_tokens"][:, :n_max], pa.expand(rows, *pa.shape[1:]),
+                ps.expand(rows, *ps.shape[1:]), generator, steps=engine.s2a_steps,
+                temperature=engine.temperature, semantic_valid=valid, row_offset=i * rows)
+            wav = engine.s2a.acoustic_model.decode_from_codes(codes, out["lengths"])
+            wav = wav[..., 0].float().cpu().numpy()
+            audio += [w[:int(n) * engine.hop_length] for w, n in zip(wav, out["lengths"].cpu())]
+    return audio
+
+
+def multi_device_path(torch, dev, smi: str) -> dict:
+    """(m): the multi-device layer on one card. A ``torchrun
+    --nproc_per_node 1`` subprocess (``dp_step_worker``: the data-parallel
+    ZeRO-2 s2a step on one NCCL rank, held against the one-process step);
+    then two engine replicas on this card (bf16 and int8, bucket 2) against
+    one engine. The ring's kernel steps are phase 3's ring cases."""
+    import copy
+    import tempfile
+
+    import numpy as np
+
+    from edm_tts_tpu_torch.kernels import all_launches, reset_launches
+    from edm_tts_tpu_torch.profile_synthesis import (
+        GEN_FRAMES,
+        PRED_ITERS,
+        STEPS,
+        bench_inputs,
+        full_width_models,
+    )
+    from edm_tts_tpu_torch.serving.engine import TTSEngine
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    try:
+        write_s2a_shards(os.path.join(tmp, "shards"))
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "1",
+               "--master_addr", "127.0.0.1", "--master_port", str(free_port()),
+               os.path.abspath(__file__), "--dp-step", tmp]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=DP_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"multi-device (m): torchrun exited {proc.returncode}:\n{proc.stdout[-3000:]}"
+                 f"\n{proc.stderr[-3000:]}")
+        with open(os.path.join(tmp, "dp.json")) as f:
+            dp = json.load(f)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    depth = 16
+    want = no_launches(attention=4 * depth, attention_bwd=4 * depth)
+    med = statistics.median(dp["step_s"][1:])
+    print(f"multi-device (m) torchrun --nproc_per_node 1: backend {dp['backend']}, world "
+          f"{dp['world']}, mesh {dp['mesh']}, fsdp collectives {dp['sharded']} ({dp['moments']} "
+          f"moments a rank); {len(dp['step_s'])} steps of B32 x 768 (4 micro-batches) step "
+          f"seconds {[round(x, 4) for x in dp['step_s']]} (median after the first {med:.4f} s), "
+          f"losses {[round(x, 5) for x in dp['losses']]}, peak device memory "
+          f"{dp['peak_bytes'] / 2 ** 30:.2f} GiB in the steps after the first (the first "
+          f"{dp['peak_first_bytes'] / 2 ** 30:.2f} GiB with the comparison's copy of the "
+          f"parameters), launches per step {dp['counts']} expected "
+          f"{want}; first step against the one-process Trainer: loss {dp['losses'][0]:.7f} vs "
+          f"{dp['plain_loss']:.7f} (rel tol {DP_LOSS_REL_TOL}), parameters max abs err "
+          f"{dp['param_max_abs_err']:.3g} (atol/rtol {DP_PARAM_ATOL}); subprocess wall "
+          f"{wall:.1f} s ({smi})", flush=True)
+    if dp["backend"] != "nccl" or dp["world"] != 1 or not dp["sharded"]:
+        fail(f"multi-device (m): backend {dp['backend']}, world {dp['world']}, sharded "
+             f"{dp['sharded']}")
+    if any(c != want for c in dp["counts"]):
+        fail(f"multi-device (m): launches per step {dp['counts']} != {want}")
+    if not (abs(dp["losses"][0] - dp["plain_loss"]) <= DP_LOSS_REL_TOL * abs(dp["plain_loss"])
+            and dp["params_within_tol"] and all(np.isfinite(dp["losses"]))):
+        fail("multi-device (m): the data-parallel step differs from the one-process step")
+    counts = {k: sum(c[k] for c in dp["counts"]) for k in want}
+
+    # two replicas of the full-width models on this card against one engine,
+    # in bf16 and f32, each with float and int8 weights
+    texts = ["The first of two rows of a bucket.", "And the second row, a little shorter."]
+    opts = dict(device=dev, pred_iters=PRED_ITERS, s2a_steps=STEPS, max_speech_len=GEN_FRAMES,
+                batch_buckets=(2,))
+    for dtype, quantize in itertools.product((torch.bfloat16, torch.float32), ("none", "int8")):
+        t2s, s2a = full_width_models(dev, SEED, dtype)
+        inp = bench_inputs(s2a.cfg, dev, SEED)
+        outs, calls = [], []
+        for mesh in (None, [dev, dev]):
+            engine = TTSEngine.from_models(copy.deepcopy(t2s), copy.deepcopy(s2a),
+                                           quantize=quantize, mesh=mesh, **opts)
+            engine.register_speaker_codes("p", inp["prompt_ac"], inp["prompt_sem"])
+            engine.synthesize(texts, "p", seed=SEED, gt_lengths=list(REPLICA_GT))  # warm-up
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs.append(engine.synthesize(texts, "p", seed=SEED + 1, gt_lengths=list(REPLICA_GT)))
+            torch.cuda.synchronize()
+            calls.append((time.perf_counter() - t0, all_launches()))
+        witness = replica_witness(torch, engine, texts, "p", SEED + 1, REPLICA_GT, 2)
+        del engine, t2s, s2a
+        gc.collect()
+        torch.cuda.empty_cache()
+        single, replicas = outs
+        label = f"{str(dtype).split('.')[-1]} {quantize}"
+        for a, b in zip(replicas, single):
+            if a.shape != b.shape or not np.isfinite(a).all() or not np.abs(a).max() > 0:
+                fail(f"multi-device (m) replicas {label}: audio {a.shape} vs {b.shape}, not "
+                     "finite or silent")
+        as_witness = all(np.array_equal(a, b) for a, b in zip(replicas, witness))
+        as_single = all(np.array_equal(a, b) for a, b in zip(replicas, single))
+        diffs = [float(np.abs(a - b).max()) for a, b in zip(replicas, single)]
+        shares = [float((np.abs(a - b) <= REPLICA_SAMPLE_TOL * np.abs(b).max()).mean())
+                  for a, b in zip(replicas, single)]
+        # bf16 with float weights: one engine runs each product over both rows
+        # at once, the replicas over one, and cuBLAS's bf16 products need not
+        # round alike at the two sizes; the witness runs the replicas' sizes
+        held_single = not (dtype == torch.bfloat16 and quantize == "none")
+        print(f"multi-device (m) engine replicas {label}: two replicas on {dev}, bucket 2, "
+              f"{[len(a) for a in replicas]} samples: equal to the witness {as_witness} "
+              f"(held), equal to one engine {as_single} "
+              f"({'held' if held_single else 'not held'}; max abs diff {diffs}, share within "
+              f"{REPLICA_SAMPLE_TOL} of the peak {shares}); call seconds one engine "
+              f"{calls[0][0]:.4f} replicas {calls[1][0]:.4f}; launches one engine "
+              f"{calls[0][1]} replicas {calls[1][1]} ({smi})", flush=True)
+        if not as_witness:
+            fail(f"multi-device (m) replicas {label}: audio differs from the witness's")
+        if held_single and not as_single:
+            fail(f"multi-device (m) replicas {label}: audio differs from one engine's")
+        if calls[1][1] != {k: 2 * v for k, v in calls[0][1].items()}:
+            fail(f"multi-device (m) replicas {label}: launches {calls[1][1]} are not one "
+                 f"engine's {calls[0][1]} on each of the two replicas")
+    return counts
+
+
 def main() -> int:
     import argparse
 
@@ -3361,6 +3719,9 @@ def main() -> int:
     mode.add_argument("--closed-loop", action="store_true",
                       help="only the build, the Conformer API check and the closed-loop "
                            "rehearsal (l); exit 3 when a check fails")
+    mode.add_argument("--dp-step", default=None, metavar="DIR",
+                      help="(path (m)'s own process, under torchrun) the data-parallel s2a "
+                           "steps on the shards in DIR")
     parser.add_argument("--parent", default=None, metavar="DIR",
                         help="another checkout of this repository whose K2 front (the "
                              "10-argument edm_tconv_phase of before PR 8) to time beside this "
@@ -3374,6 +3735,8 @@ def main() -> int:
         fail("torch.cuda.is_available() is False; this smoke run needs an NVIDIA GPU")
     if args.source_faults:
         return source_faults()
+    if args.dp_step is not None:
+        return dp_step_worker(args.dp_step)
     from edm_tts_tpu_torch import ops
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3599,10 +3962,15 @@ def main() -> int:
 
     # 15. (l) the closed-loop rehearsal at full width through the port's CLIs
     counts_l = closed_loop_path(torch, dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 16. (m) the multi-device layer: a one-rank torchrun data-parallel step, engine replicas
+    counts_m = multi_device_path(torch, dev, smi)
 
     by_path = {"a": counts_a, "b": counts_b, "c": counts_c, "g": counts_g, "h": counts_h,
                "d": counts_d, "e": counts_e, "f": counts_f, "i": counts_i, "j": counts_j,
-               "k": counts_k, "l": counts_l, "api": counts_api}
+               "k": counts_k, "l": counts_l, "m": counts_m, "api": counts_api}
     record = {"kernels": []}
     for name in KERNELS:
         cs = cases[name]

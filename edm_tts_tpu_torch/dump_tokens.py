@@ -10,8 +10,8 @@ utility_scripts/dump_tokens.py).
 
 The same steps as the JAX tool: the manifest (LibriLight in
 ``--segment_seconds`` windows), sharded per process
-(``shard_for_process``; rank and world from ``torch.distributed`` when it is
-initialized, else 0 and 1), FLAC windows decoded ahead on the native thread
+(``shard_for_process``; rank and world from ``parallel.dist``: under
+``torchrun`` each rank joins the group and dumps its shard, else 0 and 1), FLAC windows decoded ahead on the native thread
 pool (``--prefetch_threads``, 0 for synchronous loads), batches of
 ``--batch_size`` collated by ``collate_dump_batch`` (the alignment pad, a
 loudness-normalized copy for the codec, HuBERT's attention mask, the code
@@ -34,7 +34,6 @@ import argparse
 import time
 
 import numpy as np
-import torch
 
 from edm_tts_tpu_torch.data.collators import collate_dump_batch
 from edm_tts_tpu_torch.data.manifests import (
@@ -45,6 +44,7 @@ from edm_tts_tpu_torch.data.manifests import (
 from edm_tts_tpu_torch.data.pipeline import shard_for_process
 from edm_tts_tpu_torch.data.token_shards import TokenShardWriter
 from edm_tts_tpu_torch.inference import DTYPES, device_of, print_launches
+from edm_tts_tpu_torch.parallel.dist import initialize, process_info
 from edm_tts_tpu_torch.utils.hub import build_audio_tokenizer
 from edm_tts_tpu_torch.utils.logging import setup_logging
 
@@ -70,7 +70,7 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (the default: the card, an error without one) or 'cpu'")
     args = ap.parse_args(argv)
-    device = device_of(ap, args.device)
+    device = initialize(device_of(ap, args.device))  # one shard per torchrun rank
     setup_logging()
     tokenizer = build_audio_tokenizer(args.codec_model, args.hubert_model, device=device,
                                       dtype=DTYPES[args.dtype])
@@ -83,9 +83,7 @@ def main(argv: list[str] | None = None) -> None:
     else:
         manifest = librispeech_manifest(args.data_dir, args.subset)
 
-    dist = torch.distributed.is_available() and torch.distributed.is_initialized()
-    rank, world = (torch.distributed.get_rank(), torch.distributed.get_world_size()) \
-        if dist else (0, 1)
+    rank, world = process_info()
     writer = TokenShardWriter(args.output_dir, rank, args.items_per_shard)
 
     stream = shard_for_process(manifest, rank, world)

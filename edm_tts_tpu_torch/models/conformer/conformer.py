@@ -84,13 +84,19 @@ class ConformerConfig:
     remat_policy: str = "dots"
 
 
-def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None,
+            shard: tuple[int, int] = (0, 1)) -> torch.Tensor:
     """flax ``nn.Dropout``: keep with probability ``1 - rate``, scale kept
     values by ``1 / (1 - rate)``; a no-op without a generator (inference)
-    or at rate 0."""
+    or at rate 0. ``shard`` ``(i, n)``: ``x`` is the i-th of n column blocks
+    of a wider activation (tensor parallelism); the whole width's mask is
+    drawn and block i kept."""
     if generator is None or rate == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    i, n = shard
+    width = x.shape[-1]
+    u = torch.rand(x.shape[:-1] + (width * n,), generator=generator, device=x.device)
+    keep = u[..., i * width:(i + 1) * width] >= rate
     return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
@@ -120,6 +126,7 @@ class FeedForward(nn.Module):
     def __init__(self, dim: int, mult: int, rate: float = 0.0, **kw):
         super().__init__()
         self.rate = rate
+        self.shard = (0, 1)  # which block of the hidden units (parallel/tensor.py)
         self.net = nn.Sequential(
             nn.Linear(dim, dim * mult, **kw), nn.SiLU(), nn.Identity(),
             nn.Linear(dim * mult, dim, **kw), nn.Identity(),
@@ -127,7 +134,7 @@ class FeedForward(nn.Module):
 
     def forward(self, x, *, dropout_generator=None):
         lin1, act, _, lin2, _ = self.net
-        x = dropout(act(lin1(x)), self.rate, dropout_generator)
+        x = dropout(act(lin1(x)), self.rate, dropout_generator, self.shard)
         return dropout(lin2(x), self.rate, dropout_generator)
 
 

@@ -43,6 +43,7 @@ def s2a_sample(
     semantic_valid: torch.Tensor | None = None,
     greedy: bool = False,
     noise: dict[str, torch.Tensor] | None = None,
+    row_offset: int = 0,
 ) -> torch.Tensor:
     """Zero-shot semantic->acoustic generation.
 
@@ -55,6 +56,8 @@ def s2a_sample(
         schedule (codes at padded positions are garbage).
       noise: optional pre-drawn gumbel noise, ``"sample"``
         ``(steps-1, B, T, N)`` and ``"mask"`` ``(steps-1, B, T)``.
+      row_offset: the index of the first row in a larger batch (an engine
+        replica's part), so the positional draws are that batch's.
     Returns ``(B, Q, T)`` codes.
     """
     device = semantic_tokens.device
@@ -110,7 +113,7 @@ def s2a_sample(
             if greedy:
                 sampled = torch.argmax(logits, dim=-1)
             elif noise is None:
-                sampled = positional_categorical(seed_sample, logits)
+                sampled = positional_categorical(seed_sample, logits, row_offset)
             else:
                 sampled = torch.argmax(logits.float() + noise["sample"][i], dim=-1)
             enc_gen = commit(enc_gen, mask, sampled)
@@ -121,7 +124,8 @@ def s2a_sample(
             selected = torch.gather(probs, -1, sampled[..., None])[..., 0]
             selected = torch.where(mask, selected, torch.inf)
             gumbel = (noise["mask"][i] if noise is not None
-                      else positional_gumbel(seed_mask, b, t, device=device))
+                      else positional_gumbel(seed_mask, b, t, device=device,
+                                             row_offset=row_offset))
             mask = random_topk_mask(mask_len, selected, temperature=temperature * ratio,
                                     gumbel=gumbel)
             enc_gen = torch.where(mask[:, :, None], sem + model.mask_token, enc_gen)

@@ -67,6 +67,7 @@ def t2s_sample(
     gt_length: torch.Tensor | None = None,
     greedy: bool = False,
     noise: dict[str, torch.Tensor] | None = None,
+    row_offset: int = 0,
 ) -> dict[str, torch.Tensor]:
     """Batched text->semantic generation.
 
@@ -77,6 +78,8 @@ def t2s_sample(
         the gumbel noise, scaled by ``temperature``).
       noise: optional pre-drawn gumbel noise, ``"sample"``
         ``(pred_iters-1, B, L, V_sem)`` and ``"mask"`` ``(pred_iters-1, B, L)``.
+      row_offset: the index of the first row in a larger batch (an engine
+        replica's part), so the positional draws are that batch's.
     Returns ``semantic_tokens`` ``(B, max_speech_len)`` in [0, V_sem),
     ``lengths`` ``(B,)`` and ``valid`` ``(B, max_speech_len)``.
     """
@@ -111,7 +114,7 @@ def t2s_sample(
         if greedy:
             sampled = torch.argmax(logits, dim=-1)
         elif noise is None:
-            sampled = positional_categorical(seed_sample, logits)
+            sampled = positional_categorical(seed_sample, logits, row_offset)
         else:
             sampled = torch.argmax(logits.float() + noise["sample"][i], dim=-1)
 
@@ -121,7 +124,8 @@ def t2s_sample(
         selected = torch.gather(probs, -1, sampled[..., None])[..., 0]
         selected = torch.where(mask, selected, torch.inf)
         gumbel = (noise["mask"][i] if noise is not None
-                  else positional_gumbel(seed_mask, b, tokens.shape[1], device=device))
+                  else positional_gumbel(seed_mask, b, tokens.shape[1], device=device,
+                                             row_offset=row_offset))
         next_mask = random_topk_mask(mask_len, selected, temperature=temperature * ratio,
                                      gumbel=gumbel)
         new_tokens = torch.where(next_mask, SPECIAL_TOKENS["mask"], sampled + offset)

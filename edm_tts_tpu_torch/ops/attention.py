@@ -383,10 +383,22 @@ def mha(
     the config field the JAX package reads; every value other than
     ``"auto"`` and ``"pallas"`` raises on the card, so no setting moves the
     card's attention off the kernels (``"xla"`` is accepted on the CPU,
-    where it is the plain path anyway). ``"ring"`` is not ported.
+    where it is the plain path anyway). ``"ring"`` is sequence-parallel over
+    the ``sequence`` group of the ambient mesh (``with mesh:``,
+    ``parallel.mesh``; ops/ring_attention.py): K3 with its LSE and K4 per
+    ring block on the card, their plain versions on the CPU; without such a
+    mesh it raises ValueError, as the JAX package does.
     """
     if implementation == "ring":
-        raise NotImplementedError("mha: ring (sequence-parallel) attention is not ported")
+        from edm_tts_tpu_torch.ops.ring_attention import sequence_parallel_mha
+        from edm_tts_tpu_torch.parallel.mesh import SEQUENCE_AXIS, ambient_mesh
+
+        mesh = ambient_mesh()
+        if mesh is None or SEQUENCE_AXIS not in mesh.axis_names:
+            raise ValueError("implementation='ring' needs an enclosing `with mesh:` whose mesh "
+                             f"has a {SEQUENCE_AXIS!r} axis (got "
+                             f"{None if mesh is None else mesh.axis_names})")
+        return sequence_parallel_mha(q, k, v, group=mesh.group(SEQUENCE_AXIS), mask=mask)
     if implementation not in ("auto", "pallas", "xla"):
         raise ValueError(f"mha: unknown implementation {implementation!r}")
     if not q.is_cuda:

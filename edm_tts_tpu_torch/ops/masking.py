@@ -9,7 +9,9 @@ ops, keyed by (seed, b * 2**20 + t [, n]): the draw at position (b, t) does
 not depend on the canvas length, which is what ``positional_keys`` gives
 the JAX package (bucketed canvases sample like exact-size ones). It runs
 the same on the CPU and the card. It does not reproduce ``jax.random``'s
-bits; the parity tests hand both packages the same noise instead.
+bits; the parity tests hand both packages the same noise instead. A part of
+a batch (an engine replica's rows) passes its first row's index as
+``row_offset``, so it draws what the whole batch draws there.
 """
 
 from __future__ import annotations
@@ -38,10 +40,11 @@ def _hash32(x):
 
 
 def _positional_uniform(
-    seed: int, batch: int, length: int, lanes: int, device
+    seed: int, batch: int, length: int, lanes: int, device, row_offset: int = 0
 ) -> torch.Tensor:
-    """Uniform (0, 1) f32 ``(batch, length, lanes)`` keyed by position."""
-    b = torch.arange(batch, dtype=torch.int64, device=device)[:, None]
+    """Uniform (0, 1) f32 ``(batch, length, lanes)`` keyed by position; the
+    rows are rows ``row_offset...`` of a larger batch (a replica's part)."""
+    b = torch.arange(row_offset, row_offset + batch, dtype=torch.int64, device=device)[:, None]
     t = torch.arange(length, dtype=torch.int64, device=device)[None, :]
     counter = b * (1 << 20) + t
     h = _hash32(counter ^ _hash32(seed & _MASK32))[..., None]
@@ -50,16 +53,19 @@ def _positional_uniform(
     return ((h >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
 
 
-def positional_gumbel(seed: int, batch: int, length: int, *, device=None) -> torch.Tensor:
-    """Canvas-size-invariant gumbel noise ``(batch, length)``."""
-    u = _positional_uniform(seed, batch, length, 1, device)[..., 0]
+def positional_gumbel(seed: int, batch: int, length: int, *, device=None,
+                      row_offset: int = 0) -> torch.Tensor:
+    """Canvas-size-invariant gumbel noise ``(batch, length)`` of rows
+    ``row_offset...``."""
+    u = _positional_uniform(seed, batch, length, 1, device, row_offset)[..., 0]
     return -torch.log(-torch.log(u))
 
 
-def positional_categorical(seed: int, logits: torch.Tensor) -> torch.Tensor:
-    """Gumbel-argmax sample per position: ``(B, T, N)`` -> ``(B, T)`` int64."""
+def positional_categorical(seed: int, logits: torch.Tensor, row_offset: int = 0) -> torch.Tensor:
+    """Gumbel-argmax sample per position: ``(B, T, N)`` -> ``(B, T)`` int64
+    (rows ``row_offset...``)."""
     b, t, n = logits.shape
-    u = _positional_uniform(seed, b, t, n, logits.device)
+    u = _positional_uniform(seed, b, t, n, logits.device, row_offset)
     return torch.argmax(logits.float() - torch.log(-torch.log(u)), dim=-1)
 
 

@@ -18,6 +18,14 @@ The engine is built from model directories with ``from_dirs`` (the JAX
 engine's constructor: ``utils.hub``'s loaders, in the engine's ``dtype``),
 or from in-memory models with ``from_models``.
 
+Data-parallel serving (``mesh``, the JAX engine's option): a list of
+devices, each holding a replica of the models; every batch bucket must be
+divisible by their number. A batch's rows are split contiguously over the
+replicas, which run concurrently (one host thread each) with the same seed
+and their first row's index as the samplers' ``row_offset``; the t2s stage
+ends on every replica before the s2a canvas length is taken from all rows,
+so the audio is the single-device engine's.
+
 Randomness: one CPU ``torch.Generator`` seeded with the request's seed
 drives both samplers. It cannot reproduce the JAX package's
 ``jax.random`` streams, so the two engines agree only at temperature 0 with
@@ -26,6 +34,8 @@ greedy sampling (tests/test_torch_serving.py).
 
 from __future__ import annotations
 
+import concurrent.futures
+import copy
 import dataclasses
 
 import numpy as np
@@ -38,6 +48,15 @@ from edm_tts_tpu_torch.models.tokenizer import AudioTokenizer, SemanticTokenizer
 from edm_tts_tpu_torch.ops.resample import resample
 from edm_tts_tpu_torch.serving.chunking import default_chunk_chars, join_waveforms, split_text
 from edm_tts_tpu_torch.utils.bucketing import bucket_batch, bucket_length
+
+
+def no_grad(fn):
+    """``fn`` under ``torch.no_grad()`` in whichever thread runs it (grad
+    mode is per thread)."""
+    def run(*args):
+        with torch.no_grad():
+            return fn(*args)
+    return run
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,6 +83,7 @@ class TTSEngine:
         text_bucket: int = 32,
         length_bucket: int = 64,
         batch_buckets: tuple[int, ...] = (1, 2, 4, 8, 16),
+        mesh=None,
     ):
         """See ``from_models``."""
         self.device = torch.device(device)
@@ -84,6 +104,21 @@ class TTSEngine:
         self.length_bucket = length_bucket
         self.batch_buckets = tuple(sorted(batch_buckets))
         self._speakers: dict[str, SpeakerPrompt] = {}
+        self.replicas = [(self.t2s, self.s2a, self.device)]
+        if mesh is not None:
+            devices = [torch.device(d) for d in mesh]
+            if any(b % len(devices) for b in self.batch_buckets):
+                raise ValueError(f"batch buckets {self.batch_buckets} must be divisible by the "
+                                 f"data axis ({len(devices)} devices)")
+            # the first replica is the engine's own models when it is on their device
+            self.replicas = [(self.t2s, self.s2a, d) if i == 0 and d == self.device
+                             else (copy.deepcopy(self.t2s).to(d), self._s2a_replica(d), d)
+                             for i, d in enumerate(devices)]
+
+    def _s2a_replica(self, device: torch.device) -> InjectionConformer:
+        s2a = copy.deepcopy(self.s2a).to(device)
+        s2a.acoustic_model.pack()
+        return s2a
 
     @classmethod
     def from_models(cls, t2s: TextToSemantic, s2a: InjectionConformer,
@@ -101,7 +136,9 @@ class TTSEngine:
         ``quantize_t2s``/``quantize_s2a`` override it per model, as the JAX
         package's loaders take it. The other options are the JAX engine's:
         ``pred_iters``, ``s2a_steps``, ``temperature``, ``max_speech_len``,
-        ``text_bucket``, ``length_bucket`` and ``batch_buckets``.
+        ``text_bucket``, ``length_bucket``, ``batch_buckets`` and ``mesh``
+        (a list of devices, each given a replica of the models: batches are
+        split over them; ValueError unless it divides every bucket).
         """
         return cls(t2s, s2a, semantic, **opts)
 
@@ -203,23 +240,48 @@ class TTSEngine:
         if gt_lengths is not None:
             gt = torch.tensor(list(gt_lengths) + [gt_lengths[0]] * (b - b_real), device=dev)
 
-        generator = torch.Generator().manual_seed(seed)
-        t2s_out = t2s_sample(
-            self.t2s, text_tokens, text_lengths, generator, pred_iters=self.pred_iters,
-            temperature=self.temperature, max_speech_len=self.max_speech_len, gt_length=gt,
-        )
-        lengths = t2s_out["lengths"]
-        n_max = bucket_length(int(lengths.max()), self.length_bucket, self.max_speech_len)
-        semantic_valid = torch.arange(n_max, device=dev)[None, :] < lengths[:, None]
-        pa, ps = prompt.acoustic_codes, prompt.semantic_codes
-        codes = s2a_sample(
-            self.s2a, t2s_out["semantic_tokens"][:, :n_max],
-            pa.expand(b, *pa.shape[1:]), ps.expand(b, *ps.shape[1:]), generator,
-            steps=self.s2a_steps, temperature=self.temperature, semantic_valid=semantic_valid,
-        )
-        audio = self.s2a.acoustic_model.decode_from_codes(codes, lengths)
-        audio = audio[..., 0].float().cpu().numpy()
-        lengths = lengths.cpu().numpy()
+        n = len(self.replicas)
+        rows = b // n
+
+        def part(x, i):
+            return None if x is None else x[i * rows:(i + 1) * rows].to(self.replicas[i][2])
+
+        def run_t2s(i):
+            t2s, _, device = self.replicas[i]
+            generator = torch.Generator().manual_seed(seed)
+            out = t2s_sample(
+                t2s, part(text_tokens, i), part(text_lengths, i), generator,
+                pred_iters=self.pred_iters, temperature=self.temperature,
+                max_speech_len=self.max_speech_len, gt_length=part(gt, i), row_offset=i * rows)
+            return out, generator
+
+        def run_s2a(i, t2s_out, generator, n_max):
+            _, s2a, device = self.replicas[i]
+            lengths = t2s_out["lengths"]
+            semantic_valid = torch.arange(n_max, device=device)[None, :] < lengths[:, None]
+            pa, ps = (x.to(device) for x in (prompt.acoustic_codes, prompt.semantic_codes))
+            codes = s2a_sample(
+                s2a, t2s_out["semantic_tokens"][:, :n_max], pa.expand(rows, *pa.shape[1:]),
+                ps.expand(rows, *ps.shape[1:]), generator, steps=self.s2a_steps,
+                temperature=self.temperature, semantic_valid=semantic_valid, row_offset=i * rows)
+            return s2a.acoustic_model.decode_from_codes(codes, lengths)[..., 0].float().cpu()
+
+        if n == 1:
+            stage1 = [run_t2s(0)]
+            lengths = stage1[0][0]["lengths"].cpu()
+            n_max = bucket_length(int(lengths.max()), self.length_bucket, self.max_speech_len)
+            audio = run_s2a(0, *stage1[0], n_max)
+        else:
+            with concurrent.futures.ThreadPoolExecutor(n) as pool:
+                stage1 = list(pool.map(no_grad(run_t2s), range(n)))
+                # the canvas of every row of the batch, whichever replica holds it
+                lengths = torch.cat([out["lengths"].cpu() for out, _ in stage1])
+                n_max = bucket_length(int(lengths.max()), self.length_bucket,
+                                      self.max_speech_len)
+                audio = torch.cat(list(pool.map(no_grad(lambda i: run_s2a(i, *stage1[i], n_max)),
+                                                range(n))))
+        audio = audio.numpy()
+        lengths = lengths.numpy()
         return [audio[i, : int(lengths[i]) * self.hop_length] for i in range(b_real)]
 
     def synthesize_long(

@@ -25,11 +25,15 @@ from edm_tts_tpu_torch.utils.hub import load_codec, load_s2a, load_t2s  # noqa: 
 WEIGHTS_NAME = hub.TORCH_NAME
 
 
-def save_pretrained(path: str, model: nn.Module, config_json: str) -> None:
+def save_pretrained(path: str, model: nn.Module, config_json: str,
+                    state: dict | None = None) -> None:
+    """``state`` (default ``model.state_dict()``; a tensor-parallel trainer's
+    ``model_state()`` holds the whole tensors) with the config."""
     os.makedirs(path, exist_ok=True)
     with open(os.path.join(path, "config.json"), "w") as f:
         f.write(config_json)
-    state = {k: v.detach().to("cpu", copy=True) for k, v in model.state_dict().items()}
+    state = model.state_dict() if state is None else state
+    state = {k: v.detach().to("cpu", copy=True) for k, v in state.items()}
     torch.save(state, os.path.join(path, WEIGHTS_NAME))
 
 
@@ -39,9 +43,9 @@ def load_state(path: str, model: nn.Module) -> None:
     load_reference_state_dict(model, hub.load_weights(path))
 
 
-def save_s2a(path: str, model: InjectionConformer) -> None:
-    save_pretrained(path, model, model.cfg.to_json())
+def save_s2a(path: str, model: InjectionConformer, state: dict | None = None) -> None:
+    save_pretrained(path, model, model.cfg.to_json(), state)
 
 
-def save_t2s(path: str, model: TextToSemantic) -> None:
-    save_pretrained(path, model, model.cfg.to_json())
+def save_t2s(path: str, model: TextToSemantic, state: dict | None = None) -> None:
+    save_pretrained(path, model, model.cfg.to_json(), state)

@@ -20,6 +20,15 @@ seeded with ``(seed, step)``, as the JAX loop folds the step into its key,
 so a resumed run draws what an unbroken one would. Each logged record also
 carries ``time/<phase>``: the seconds of each part of the last step
 (``gan.PHASES``), from CUDA events on the card.
+
+Several devices (one process each, ``torchrun``): the global batch is split
+over the mesh's data x fsdp ranks (``parallel.mesh``, by default every rank
+on data), the quantizer-dropout thresholds are drawn for the global batch
+and sliced, and both optimizers average the gradients over the ranks
+before each of the two updates (``AdamW``; with fsdp the moments sharded,
+ZeRO-2). Logged train metrics and eval are global means;
+rank 0 alone writes logs, samples, checkpoints (whole tensors: they load on
+any number of ranks) and the best model.
 """
 
 from __future__ import annotations
@@ -36,11 +45,13 @@ from torch import nn
 
 from edm_tts_tpu_torch.data.audio_io import save_wav
 from edm_tts_tpu_torch.models.codec.losses import ReconstructionLoss
+from edm_tts_tpu_torch.parallel.dist import any_rank, barrier, global_mean_metrics
+from edm_tts_tpu_torch.parallel.mesh import BATCH, all_reduce, make_mesh
 from edm_tts_tpu_torch.train.checkpoint import CheckpointManager, detect_last_checkpoint
 from edm_tts_tpu_torch.train.gan import gan_eval_step, gan_train_step
 from edm_tts_tpu_torch.train.optim import AdamW, exponential_schedule
 from edm_tts_tpu_torch.train.preemption import PreemptionGuard
-from edm_tts_tpu_torch.train.trainer import fold_in
+from edm_tts_tpu_torch.train.trainer import SilentMetricLogger, fold_in
 from edm_tts_tpu_torch.utils import hub
 from edm_tts_tpu_torch.utils.logging import MetricLogger, logger
 from edm_tts_tpu_torch.utils.profiling import step_annotation
@@ -105,22 +116,30 @@ class GANTrainer:
 
     def __init__(self, args: GANTrainingArguments, codec: nn.Module, disc: nn.Module,
                  recon_loss: ReconstructionLoss, lambdas: Mapping[str, float] | None = None,
-                 *, device="cuda"):
+                 *, device="cuda", mesh=None):
         self.args = args
         self.codec, self.disc = codec, disc
         self.recon_loss = recon_loss
         self.lambdas = dict(lambdas) if lambdas else None
         self.device = torch.device(device)
+        self.mesh = mesh if mesh is not None else make_mesh()
         self.g_opt = AdamW(codec.named_parameters(),
                            exponential_schedule(args.gen_lr, args.scheduler_gamma),
-                           b1=args.gen_betas[0], b2=args.gen_betas[1], weight_decay=0.01)
+                           b1=args.gen_betas[0], b2=args.gen_betas[1], weight_decay=0.01,
+                           mesh=self.mesh)
         self.d_opt = AdamW(disc.named_parameters(),
                            exponential_schedule(args.disc_lr, args.scheduler_gamma),
-                           b1=args.disc_betas[0], b2=args.disc_betas[1], weight_decay=0.01)
+                           b1=args.disc_betas[0], b2=args.disc_betas[1], weight_decay=0.01,
+                           mesh=self.mesh)
+        # gan_train_step's ``watch`` reads the reduced gradients from ``.grad``
+        self.g_opt.write_grads = self.d_opt.write_grads = bool(args.watch)
         # the overwrite guard runs before anything is written to output_dir
         detect_last_checkpoint(args.output_dir, args.overwrite_output_dir)
+        if self.mesh.distributed:
+            barrier()
         self.ckpt = CheckpointManager(args.output_dir, args.save_total_limit)
-        self.metrics = MetricLogger(args.output_dir, trackers=args.trackers)
+        self.metrics = (MetricLogger(args.output_dir, trackers=args.trackers)
+                        if self.mesh.rank == 0 else SilentMetricLogger())
         self.best_val_loss = math.inf
         self.history: list[dict] = []  # every record logged, train and eval
         self.clock = PhaseClock(self.device)
@@ -132,8 +151,14 @@ class GANTrainer:
                 "disc_optimizer": self.d_opt.state_dict()}
 
     def save(self, step: int) -> str | None:
-        return self.ckpt.save(step, self.state(),
-                              {"step": step, "best_val_loss": self.best_val_loss})
+        """Every rank gathers the state, rank 0 writes it, all meet at a barrier."""
+        state = self.state()
+        path = None
+        if self.mesh.rank == 0:
+            path = self.ckpt.save(step, state, {"step": step, "best_val_loss": self.best_val_loss})
+        if self.mesh.distributed:
+            barrier()
+        return path
 
     def _restore(self) -> int:
         latest = self.ckpt.latest_step()
@@ -150,6 +175,8 @@ class GANTrainer:
         return int(meta.get("step", latest))
 
     def export_best(self) -> None:
+        if self.mesh.rank != 0:
+            return
         hub.save_reference(os.path.join(self.args.output_dir, "best_model"), self.codec)
 
     # -- the loop ------------------------------------------------------------
@@ -174,18 +201,29 @@ class GANTrainer:
             t_limit = int(hh) * 3600 + int(mm) * 60
         last_log = time.time()
         for step in range(start, args.max_steps):
-            audio = torch.as_tensor(next(train_iter)).to(self.device)
+            audio = torch.as_tensor(next(train_iter))
             gen = torch.Generator(device=self.device).manual_seed(fold_in(args.seed, step))
+            thresholds = None
+            if self.mesh.distributed:
+                if self.codec.quantizer.quantizer_dropout > 0.0:  # drawn for the global batch
+                    thresholds = self.codec.quantizer.active_level_thresholds(
+                        audio.shape[0], train=True, generator=gen, device=self.device)
+                    thresholds = self.mesh.local_rows({"t": thresholds})["t"]
+                audio = self.mesh.local_rows({"a": audio})["a"]
+            audio = audio.to(self.device)
             self.clock.start()
             with step_annotation("gan_train", step):
                 metrics = gan_train_step(
                     self.codec, self.disc, self.recon_loss, self.g_opt, self.d_opt, audio,
-                    generator=gen, lambdas=self.lambdas,
+                    generator=gen, thresholds=thresholds, lambdas=self.lambdas,
                     skip_nonfinite=args.skip_nonfinite_updates, watch=args.watch,
                     clock=self.clock)
             if (step + 1) % args.logging_steps == 0:
                 # one transfer for every scalar; it waits for the step
-                m = dict(zip(metrics, torch.stack(list(metrics.values())).tolist()))
+                values = torch.stack(list(metrics.values()))
+                if self.mesh.distributed:  # the mean over the ranks' equal parts of the batch
+                    values = all_reduce(values, self.mesh.group(BATCH)) / self.mesh.size(BATCH)
+                m = dict(zip(metrics, values.tolist()))
                 dt = time.time() - last_log
                 last_log = time.time()
                 m["steps_per_sec"] = args.logging_steps / dt
@@ -201,10 +239,12 @@ class GANTrainer:
                     self.export_best()
             if (step + 1) % args.save_steps == 0:
                 self.save(step + 1)
-            if guard.triggered:
+            preempted, timed_out = any_rank(
+                guard.triggered, t_limit is not None and time.time() - t0 > t_limit)
+            if preempted:
                 logger.warning("preemption signal; saving at step %d", step + 1)
                 break
-            if t_limit is not None and time.time() - t0 > t_limit:
+            if timed_out:
                 logger.info("time limit; saving at step %d", step + 1)
                 break
         self.save(min(step + 1, args.max_steps))
@@ -213,21 +253,25 @@ class GANTrainer:
     def evaluate(self, eval_iter: Iterable, log_audio_step: int | None = None) -> dict:
         """The mean mel loss over ``eval_iter`` (a zero-argument factory gives
         a fresh pass per eval; a bare generator would be used up by the
-        first)."""
+        first); with several ranks each takes its rows of every batch and
+        the mean is global (``global_mean_metrics``), the same on every
+        rank."""
         if callable(eval_iter):
             eval_iter = eval_iter()
         losses = []
         last = None
         for audio in eval_iter:
+            if self.mesh.distributed:
+                audio = self.mesh.local_rows({"a": audio})["a"]
             audio = torch.as_tensor(audio).to(self.device)
             mel, recon = gan_eval_step(self.codec, self.recon_loss, audio)
             losses.append(float(mel))
             last = audio, recon
-        if log_audio_step is not None and last is not None:
+        if log_audio_step is not None and last is not None and self.mesh.rank == 0:
             self._log_audio_samples(log_audio_step, *last)
-        if not losses:
+        if not any_rank(bool(losses))[0]:
             return {"mel_loss": float("nan")}
-        return {"mel_loss": float(np.sum(losses)) / len(losses)}
+        return global_mean_metrics({"mel_loss": float(np.sum(losses))}, len(losses))
 
     def _log_audio_samples(self, step: int, real: torch.Tensor, recon: torch.Tensor) -> None:
         """The last eval batch's first reconstructions and originals as WAVs

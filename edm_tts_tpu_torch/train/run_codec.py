@@ -1,6 +1,10 @@
-"""Codec GAN training on one CUDA card (port of run_codec_training.py).
+"""Codec GAN training on CUDA cards (port of run_codec_training.py).
 
     python -m edm_tts_tpu_torch.train.run_codec configs/dac/train_config.yaml [--device cpu]
+    torchrun --nproc_per_node N -m edm_tts_tpu_torch.train.run_codec <yaml>
+
+Under ``torchrun`` each rank takes its part of every batch
+(``GANTrainer``'s data-parallel layout).
 
 The same YAML surface as the JAX entry point: ``generator_args``
 (``CodecConfig``), ``discriminator_args`` (``DiscriminatorConfig``), the two
@@ -29,13 +33,13 @@ import dataclasses
 import os
 
 import numpy as np
-import torch
 
 from edm_tts_tpu_torch.convert import init_random_weights
 from edm_tts_tpu_torch.models.codec import Codec, CodecConfig
 from edm_tts_tpu_torch.models.codec.discriminator import Discriminator, DiscriminatorConfig
 from edm_tts_tpu_torch.models.codec.losses import ReconstructionLoss
 from edm_tts_tpu_torch.ops.precision import exact_f32
+from edm_tts_tpu_torch.parallel.dist import initialize
 from edm_tts_tpu_torch.train.cli import recipe_cli
 from edm_tts_tpu_torch.train.gan_trainer import GANTrainer, GANTrainingArguments
 
@@ -154,7 +158,7 @@ def build_models(raw: dict, device) -> tuple[Codec, Discriminator]:
 def main_from_dict(raw: dict, *, device="cuda") -> GANTrainer | None:
     """Train as the recipe ``raw`` says; returns the trainer (its models and
     logged ``history``), or None for ``preprocessing_only``."""
-    device = torch.device(device)
+    device = initialize(device)  # one rank of a torchrun launch, or one process
     args = training_arguments(raw)
     data_args = data_arguments(raw)
     gen_cfg = CodecConfig.from_dict(raw.get("generator_args", {}))

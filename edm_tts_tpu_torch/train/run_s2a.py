@@ -1,8 +1,14 @@
-"""Semantic->acoustic (injection Conformer) training on one CUDA card (port
+"""Semantic->acoustic (injection Conformer) training on CUDA cards (port
 of run_semantic_to_acoustic_training.py).
 
     python -m edm_tts_tpu_torch.train.run_s2a configs/injection_conformer/train_config.yaml \
         [--device cuda|cpu]
+    torchrun --nproc_per_node N -m edm_tts_tpu_torch.train.run_s2a <yaml>
+
+Under ``torchrun`` each process joins the group (``parallel.dist.
+initialize``: NCCL on the cards, gloo with ``--device cpu``) and trains on
+the layout of the recipe's ``n_fsdp``, ``n_model`` and ``n_seq``
+(``Trainer``); rank 0 writes the logs, checkpoints and export.
 
 The same YAML as the JAX entry point: the base ``S2AConfig`` overridden by
 ``extra_model_params`` (with the reference's nested ``encoder_config``
@@ -41,6 +47,7 @@ from edm_tts_tpu_torch.data.pipeline import crop_code_example, shuffle_buffer
 from edm_tts_tpu_torch.data.token_shards import iter_reference_pt_shards, iter_token_shards
 from edm_tts_tpu_torch.models.s2a import InjectionConformer, S2AConfig
 from edm_tts_tpu_torch.ops.precision import exact_f32
+from edm_tts_tpu_torch.parallel.dist import barrier, initialize
 from edm_tts_tpu_torch.train.cli import recipe_cli
 from edm_tts_tpu_torch.train.export import load_codec, load_state, save_s2a
 from edm_tts_tpu_torch.train.optim import freeze_submodule
@@ -161,7 +168,7 @@ def s2a_loss(model: InjectionConformer, *, bf16: bool):
 def main_from_dict(raw: dict, *, device="cuda") -> Trainer | None:
     """Train as the recipe ``raw`` says; returns the Trainer (its model and
     logged ``history``), or None for ``preprocessing_only``."""
-    device = torch.device(device)
+    device = initialize(device)  # one rank of a torchrun launch, or one process
     args = training_arguments(raw)
     model = build_model(raw, device)
     cfg = model.cfg
@@ -198,8 +205,11 @@ def main_from_dict(raw: dict, *, device="cuda") -> Trainer | None:
         trainer.train(train_iter, eval_iter)
     export_dir = os.path.join(args.output_dir, "export")
     t0 = time.perf_counter()
-    save_s2a(export_dir, model)
-    logger.info("exported the model to %s in %.2f s", export_dir, time.perf_counter() - t0)
+    state = trainer.model_state()  # whole tensors (every rank takes part)
+    if trainer.mesh.rank == 0:
+        save_s2a(export_dir, model, state)
+        logger.info("exported the model to %s in %.2f s", export_dir, time.perf_counter() - t0)
+    barrier()
     return trainer
 
 

@@ -1,8 +1,12 @@
-"""Text->semantic (with length predictor) training on one CUDA card (port
+"""Text->semantic (with length predictor) training on CUDA cards (port
 of run_text_to_semantic_training.py).
 
     python -m edm_tts_tpu_torch.train.run_t2s configs/text_to_semantic_w_length/train_config.yaml \
         [--device cuda|cpu]
+    torchrun --nproc_per_node N -m edm_tts_tpu_torch.train.run_t2s <yaml>
+
+Under ``torchrun`` the ranks train on the recipe's ``n_fsdp`` / ``n_model``
+/ ``n_seq`` layout, as ``run_s2a``'s do.
 
 The same YAML as the JAX entry point: the base ``T2SConfig`` overridden by
 ``extra_model_params``; text + semantic token shards (``dataset_args``),
@@ -39,6 +43,7 @@ from edm_tts_tpu_torch.data.collators import collate_t2s, length_bucketed, t2s_f
 from edm_tts_tpu_torch.data.pipeline import shuffle_buffer
 from edm_tts_tpu_torch.data.token_shards import iter_reference_pt_shards, iter_token_shards
 from edm_tts_tpu_torch.models.t2s import T2SConfig, TextToSemantic
+from edm_tts_tpu_torch.parallel.dist import barrier, initialize
 from edm_tts_tpu_torch.train.cli import recipe_cli
 from edm_tts_tpu_torch.train.export import save_t2s
 from edm_tts_tpu_torch.train.run_s2a import precision, training_arguments
@@ -102,7 +107,7 @@ def t2s_loss(model: TextToSemantic, *, bf16: bool):
 def main_from_dict(raw: dict, *, device="cuda") -> Trainer | None:
     """Train as the recipe ``raw`` says; returns the Trainer (its model and
     logged ``history``), or None for ``preprocessing_only``."""
-    device = torch.device(device)
+    device = initialize(device)  # one rank of a torchrun launch, or one process
     args = training_arguments(raw, **T2S_DEFAULTS)
     dataset = raw.get("dataset_args", {})
     train_iter = t2s_batch_iterator(dataset.get("data_dir", "data/text_codes"),
@@ -135,8 +140,11 @@ def main_from_dict(raw: dict, *, device="cuda") -> Trainer | None:
         trainer.train(train_iter, eval_iter)
     export_dir = os.path.join(args.output_dir, "export")
     t0 = time.perf_counter()
-    save_t2s(export_dir, model)
-    logger.info("exported the model to %s in %.2f s", export_dir, time.perf_counter() - t0)
+    state = trainer.model_state()  # whole tensors (every rank takes part)
+    if trainer.mesh.rank == 0:
+        save_t2s(export_dir, model, state)
+        logger.info("exported the model to %s in %.2f s", export_dir, time.perf_counter() - t0)
+    barrier()
     return trainer
 
 

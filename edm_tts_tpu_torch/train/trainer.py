@@ -18,8 +18,22 @@ Randomness: each step's generator is seeded from ``(seed, step)`` (and
 each micro-batch's from that and its index), as the JAX loop folds the step
 into its key, so a resumed run draws what an unbroken one would.
 
-One device only: ``n_fsdp``, ``n_model`` and ``n_seq`` above 1 raise
-``NotImplementedError``.
+Several devices: one process per device (``torchrun``; ``parallel.dist.
+initialize``), laid out by ``parallel.mesh.make_mesh(n_fsdp=, n_model=,
+n_seq=)`` (ValueError when they do not multiply to the world size, as the
+JAX assert). ``per_device_train_batch_size`` is the global batch, as the
+JAX trainer shards one over its mesh: each data x fsdp rank takes its
+contiguous rows, and its micro-batch i is the global micro-batch
+c = rank * micro_batches + i with the generator of ``(step seed, c)``, so an
+N-rank step is the one-process step with N * micro_batches micro-batches.
+The weighted gradient sums and weights are reduced over the ranks (the
+global masked-mean gradient, not a mean of per-rank means) by
+``AdamW`` (ZeRO-2: each fsdp rank keeps the moments of its slice of
+the parameters); ``n_model`` splits the Conformer blocks
+(``parallel.tensor``), and ``n_seq`` runs a model built with
+``attn_implementation="ring"`` on the mesh's ring. The metrics are global
+means on every rank; rank 0 alone writes logs, trackers and checkpoints,
+which hold whole tensors and so load on any number of ranks.
 """
 
 from __future__ import annotations
@@ -31,6 +45,8 @@ from typing import Callable, Iterable, Iterator, Mapping
 import torch
 from torch import nn
 
+from edm_tts_tpu_torch.parallel.dist import any_rank, barrier, global_mean_metrics
+from edm_tts_tpu_torch.parallel.mesh import BATCH, all_reduce, make_mesh
 from edm_tts_tpu_torch.train.checkpoint import CheckpointManager, detect_last_checkpoint
 from edm_tts_tpu_torch.train.optim import AdamW, warmup_cosine_schedule
 from edm_tts_tpu_torch.train.preemption import PreemptionGuard
@@ -106,27 +122,34 @@ class Trainer:
     """
 
     def __init__(self, args: TrainingArguments, model: nn.Module, loss_fn: LossFn, *,
-                 eval_fn: Callable | None = None, device="cuda"):
-        for name in ("n_fsdp", "n_model", "n_seq"):
-            if getattr(args, name) > 1:
-                raise NotImplementedError(f"{name}={getattr(args, name)}: the port trains "
-                                          "on one device (multi-device is not ported)")
-        if args.per_device_train_batch_size % max(1, args.micro_batches):
-            raise ValueError("per_device_train_batch_size must be a multiple of micro_batches")
+                 eval_fn: Callable | None = None, device="cuda", mesh=None):
+        self.mesh = mesh if mesh is not None else make_mesh(
+            n_fsdp=args.n_fsdp, n_model=args.n_model, n_seq=args.n_seq)
+        if args.per_device_train_batch_size % (self.mesh.size(BATCH) * max(1, args.micro_batches)):
+            raise ValueError("per_device_train_batch_size must be a multiple of micro_batches "
+                             "times the data x fsdp ranks")
         self.args = args
         self.model = model
         self.device = torch.device(device)
         self.loss_fn = loss_fn
         self.eval_fn = eval_fn
-        self.optimizer = AdamW(
-            model.named_parameters(),
-            warmup_cosine_schedule(args.learning_rate, args.warmup_steps, args.max_steps),
-            b1=args.adam_beta1, b2=args.adam_beta2, eps=args.adam_epsilon,
-            weight_decay=args.weight_decay, max_grad_norm=args.max_grad_norm)
+        self.plan = None
+        if self.mesh.size("model") > 1:
+            from edm_tts_tpu_torch.parallel.tensor import tensor_parallel
+
+            self.plan = tensor_parallel(model, self.mesh)
+        opt = dict(b1=args.adam_beta1, b2=args.adam_beta2, eps=args.adam_epsilon,
+                   weight_decay=args.weight_decay, max_grad_norm=args.max_grad_norm)
+        schedule = warmup_cosine_schedule(args.learning_rate, args.warmup_steps, args.max_steps)
+        self.optimizer = AdamW(model.named_parameters(), schedule, mesh=self.mesh,
+                               plan=self.plan, **opt)
         # the overwrite guard runs before anything is written to output_dir
         detect_last_checkpoint(args.output_dir, args.overwrite_output_dir)
+        if self.mesh.distributed:
+            barrier()
         self.ckpt = CheckpointManager(args.output_dir, args.save_total_limit)
-        self.metrics = MetricLogger(args.output_dir, trackers=args.trackers)
+        self.metrics = (MetricLogger(args.output_dir, trackers=args.trackers)
+                        if self.mesh.rank == 0 else SilentMetricLogger())
         self.history: list[dict] = []  # every record logged, train and eval
         self.last_save: dict | None = None
 
@@ -138,62 +161,76 @@ class Trainer:
         return torch.Generator(device=self.device).manual_seed(seed)
 
     def train_step(self, batch: Mapping, step: int) -> dict[str, torch.Tensor]:
-        """Gradient of ``batch`` (accumulated over micro-batches) and one
-        update, whatever the caller's grad mode. Returns the step's metrics
-        as device scalars."""
-        params = self.optimizer.params
-        for p in params:
+        """Gradient of ``batch`` (the global batch) and one update, whatever
+        the caller's grad mode. This rank's rows are micro-batches
+        ``rank * micro_batches + i`` of the global batch; their weighted
+        sums are reduced over data x fsdp, and the optimizer takes the global
+        masked-mean gradient. Returns the step's metrics as device scalars."""
+        for p in self.optimizer.params:
             p.grad = None
-        step_seed = fold_in(self.args.seed, step)
         n_micro = max(1, self.args.micro_batches)
-        with torch.enable_grad():
-            if n_micro == 1:
-                loss, metrics = self.loss_fn(batch, self._generator(step_seed))
-                metrics = dict(metrics)
-                metrics.pop("loss_weight", None)
-                loss.backward()
-                metrics["loss"] = loss.detach()
-            else:
-                metrics = self._accumulate(batch, step_seed, n_micro)
+        batch = self._to_device(self.mesh.local_rows(batch))
+        with torch.enable_grad(), self.mesh:
+            sums, w_sum = self._weighted_sums(batch, fold_in(self.args.seed, step), n_micro,
+                                              self.mesh.index(BATCH) * n_micro)
+        keys = list(sums)
+        vec = all_reduce(torch.stack([w_sum] + [sums[k] for k in keys]),
+                         self.mesh.group(BATCH))
+        metrics = {k: vec[i + 1] / vec[0] for i, k in enumerate(keys)}
+        g = self.optimizer.reduce_gradients(vec[0])
         if self.args.watch:  # the gradient before clipping, the parameters before the update
-            named = self.optimizer.named
             metrics.update(watch_metrics(
-                self.args.watch, grads={n: p.grad for n, p in named if p.grad is not None},
-                params=dict(named)))
-        metrics.update(self.optimizer.step(skip_nonfinite=self.args.skip_nonfinite_updates))
+                self.args.watch, grads=self._whole(self.optimizer.full_gradients(g)),
+                params=self._whole(dict(self.optimizer.named))))
+        metrics.update(self.optimizer.apply(g, skip_nonfinite=self.args.skip_nonfinite_updates))
         return metrics
 
-    def _accumulate(self, batch: Mapping, step_seed: int, n_micro: int) -> dict:
-        """p.grad = sum_i(w_i g_i) / sum_i(w_i) over the micro-batches; the
-        metrics are weighted the same way."""
+    def _whole(self, state: dict) -> dict:
+        """Whole tensors from this rank's model shards (a collective under
+        tensor parallelism)."""
+        return state if self.plan is None else self.plan.gather_state(state)
+
+    def _weighted_sums(self, batch: Mapping, step_seed: int, n_micro: int, first: int):
+        """Backward of sum_i(w_i loss_i) over the micro-batches into p.grad
+        (micro-batch i draws from ``(step_seed, first + i)``); returns the
+        metrics' weighted sums and sum_i(w_i). A step of one micro-batch in
+        all takes w = 1 (the plain gradient, as the JAX step without
+        accumulation)."""
         chunks = {k: v.chunk(n_micro) for k, v in batch.items()}
+        alone = n_micro * self.mesh.size(BATCH) == 1
         sums: dict[str, torch.Tensor] = {}
         w_sum = torch.zeros((), device=self.device)
         for i in range(n_micro):
             micro = {k: c[i] for k, c in chunks.items()}
-            loss, metrics = self.loss_fn(micro, self._generator(fold_in(step_seed, i)))
+            loss, metrics = self.loss_fn(micro, self._generator(fold_in(step_seed, first + i)))
             metrics = dict(metrics)
-            w = torch.as_tensor(metrics.pop("loss_weight", 1.0),
-                                dtype=torch.float32, device=self.device)
+            w = metrics.pop("loss_weight", 1.0)
+            w = torch.as_tensor(1.0 if alone else w, dtype=torch.float32, device=self.device)
             # d(loss * w)/dp = w g: the weighted term, summed in p.grad
-            (loss * w).backward()
+            (loss if alone else loss * w).backward()
             metrics["loss"] = loss.detach()
             for k, v in metrics.items():
                 sums[k] = sums.get(k, 0.0) + w * v.detach().float()
             w_sum = w_sum + w
-        for p in self.optimizer.params:
-            if p.grad is not None:
-                p.grad.div_(w_sum)
-        return {k: v / w_sum for k, v in sums.items()}
+        return sums, w_sum
 
     # -- checkpoints ---------------------------------------------------------
+    def model_state(self) -> dict:
+        """The model's state dict with whole tensors (gathered over the model
+        ranks under tensor parallelism: a collective)."""
+        return self._whole(self.model.state_dict())
+
     def save(self, step: int) -> str | None:
         """Checkpoint the train state at ``step`` (once per step); the last
-        save's path and seconds are kept in ``last_save``."""
+        save's path and seconds are kept in ``last_save``. Every rank takes
+        part (the sharded state is gathered whole), rank 0 writes, and all
+        meet at a barrier."""
         t0 = time.perf_counter()
-        state = {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
+        state = {"model": self.model_state(), "optimizer": self.optimizer.state_dict(),
                  "step": step}
-        path = self.ckpt.save(step, state, {"step": step})
+        path = self.ckpt.save(step, state, {"step": step}) if self.mesh.rank == 0 else None
+        if self.mesh.distributed:
+            barrier()
         if path is not None:
             self.last_save = {"step": step, "path": path, "seconds": time.perf_counter() - t0}
             logger.info("saved %s in %.2f s", path, self.last_save["seconds"])
@@ -201,7 +238,9 @@ class Trainer:
 
     def maybe_resume(self) -> int:
         """Restore the explicit ``resume_from_checkpoint`` or the latest
-        checkpoint of ``output_dir`` (unless overwriting); returns the step."""
+        checkpoint of ``output_dir`` (unless overwriting); returns the step.
+        Each rank takes its part of the whole tensors, whatever number of
+        ranks wrote them."""
         args = self.args
         if args.resume_from_checkpoint:
             mgr = CheckpointManager(args.resume_from_checkpoint, None)
@@ -210,7 +249,10 @@ class Trainer:
         else:
             return 0
         state, meta = mgr.restore(map_location=self.device)
-        self.model.load_state_dict(state["model"])
+        model_state = state["model"]
+        if self.plan is not None:
+            model_state = self.plan.shard_state(model_state)
+        self.model.load_state_dict(model_state)
         self.optimizer.load_state_dict(state["optimizer"])
         logger.info("resumed from checkpoint step %s", meta["step"])
         return int(meta["step"])
@@ -234,7 +276,7 @@ class Trainer:
         last_log = time.time()
         step = start_step
         for step in range(start_step, args.max_steps):
-            batch = self._to_device(next(train_iter))
+            batch = next(train_iter)
             with step_annotation("train", step):
                 metrics = self.train_step(batch, step)
             if (step + 1) % args.logging_steps == 0:
@@ -253,12 +295,16 @@ class Trainer:
                 last_log = time.time()
             if (step + 1) % args.save_steps == 0:
                 self.save(step + 1)
-            if guard.triggered:
+            preempted, timed_out = guard.triggered, (t_limit is not None
+                                                     and time.time() - t_start > t_limit)
+            if self.mesh.distributed:  # every rank stops at the same step
+                preempted, timed_out = any_rank(preempted, timed_out)
+            if preempted:
                 logger.warning("preemption signal: checkpointing at step %d and stopping "
                                "(resume picks this up)", step + 1)
                 self.save(step + 1)
                 break
-            if t_limit is not None and time.time() - t_start > t_limit:
+            if timed_out:
                 logger.info("time limit reached at step %d; saving and stopping", step + 1)
                 self.save(step + 1)
                 break
@@ -269,10 +315,38 @@ class Trainer:
 
     @torch.no_grad()
     def evaluate(self, eval_iter: Iterable) -> dict[str, float]:
+        """The mean of ``eval_fn`` over the batches; with several ranks each
+        takes its rows of every batch and the mean is global
+        (``global_mean_metrics``), the same on every rank."""
         totals: dict[str, float] = {}
         n = 0
         for batch in eval_iter:
-            for k, v in self.eval_fn(self._to_device(batch)).items():
+            if self.mesh.distributed:
+                batch = self.mesh.local_rows(batch)
+            with self.mesh:
+                out = self.eval_fn(self._to_device(batch))
+            for k, v in out.items():
                 totals[k] = totals.get(k, 0.0) + float(v)
             n += 1
+        if self.mesh.distributed:
+            return global_mean_metrics(totals, n)
         return {k: v / max(n, 1) for k, v in totals.items()}
+
+
+class SilentMetricLogger:
+    """What a rank other than 0 logs: the record ``MetricLogger.log``
+    returns, written nowhere."""
+
+    trackers: list = []
+
+    def log(self, step: int, metrics: Mapping, prefix: str = "") -> dict:
+        record = {"step": step, "time": time.time()}
+        for k, v in metrics.items():
+            try:
+                record[f"{prefix}{k}"] = float(v)
+            except (TypeError, ValueError):
+                continue
+        return record
+
+    def log_audio(self, *args) -> None:
+        pass

@@ -194,8 +194,8 @@ def test_overwrite_guard_and_unported_options(tmp_path):
     (tmp_path / "stale.txt").write_text("a previous run")
     with pytest.raises(ValueError, match="not empty"):
         _trainer(model, tmp_path)
-    for kw in ({"n_fsdp": 2}, {"n_seq": 2}):
-        with pytest.raises(NotImplementedError):
+    for kw in ({"n_fsdp": 2}, {"n_seq": 2}):  # one process cannot lay out 2 ranks
+        with pytest.raises(ValueError, match="processes"):
             _trainer(model, tmp_path / "x", **kw)
     assert _trainer(model, tmp_path / "w", watch="gradients").args.watch == "gradients"
 
