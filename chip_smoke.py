@@ -32,7 +32,8 @@ Phases, each reported on its own line:
      and K5's f32 kernels against their plain f32 versions (TF32 off) at
      the f32 path's shapes (ATTENTION_F32_CASES, an edge case
      ATTENTION_F32_EDGE_CASE, and for K3 also the training shapes
-     ATTENTION_TRAIN_CASES; K5 at the 31 int8 cases with f32 activations),
+     ATTENTION_TRAIN_CASES and GPipe's PIPE_ATTENTION_CASES; K5 at the 31
+     int8 cases with f32 activations),
      and K4's f32 kernel at the bf16 K4's cases, beside SDPA f32 (for K4
      its f32 backward) and the f32 matmul on the dequantized weight, bound
      at the split-TF32 rates (495/3 TFLOP/s for K3 and K4, 495/2 for K5,
@@ -195,6 +196,23 @@ Phases, each reported on its own line:
      one engine's models through ``t2s_sample``/``s2a_sample`` with each
      part's ``row_offset``) and, but for bf16 with float weights, to one
      engine's; bf16 with float weights prints its gap to one engine.
+ 17. GPipe (n) (``pipeline_path``): the full-width s2a of (d) (seeded init,
+     bf16 autocast) on B8 x 768 seeded tokens in PIPE_MICRO microbatches
+     through ``models.s2a.pipeline.pipelined_train_loss`` on local pipe
+     meshes of 4 stages and of 1 (all stages in this process), in turns
+     PIPE_REPEATS times: the loss and every gradient equal to the bit
+     between the two and across repeats, each within TRAIN_LOSS_REL_TOL /
+     TRAIN_GRAD_REL_L2_TOL of ``forward_train(..., mask_override=mask,
+     train=False)`` on the whole batch (the gradients' relative l2 over
+     all of them and for each leaf the pipe writes itself: the injection
+     projections, the embeddings and the mask token), 64 K3 and 64 K4
+     launches a step; K3 with its LSE and K4 on the q, k, v of the first
+     and the last attention of the step (B2 x 768 x 16 x 64 bf16) against
+     the plain versions at phase 3's limits;
+     prints the median step wall, peak memory and one profiled step's
+     device time of each; then ``python -m torch.distributed.run
+     --nproc_per_node 1 -m edm_tts_tpu_torch.dryrun_multichip`` (one NCCL
+     rank: leg 1, the tiny s2a's ZeRO-2 step) must exit 0.
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
 There is no CPU fallback: without a CUDA device the script fails.
@@ -217,6 +235,10 @@ passes.
 
 builds the kernels and runs only the Conformer API check and path (l);
 it exits 3 when a check fails.
+
+    python3 chip_smoke.py --pipeline
+
+builds the kernels and runs only path (n); it exits 3 when a check fails.
 """
 
 from __future__ import annotations
@@ -471,6 +493,11 @@ KERNELS = {
 # valid ones, row 1 without a valid key (uniform attention)
 ATTENTION_F32_EDGE_CASE = ("edge B2 T300 H4 D40 hole, a row without valid keys",
                            (2, 300, 4, 40, (((0, 70), (200, 260)), ())))
+# K3 with its LSE and K4, in bf16 and in f32, also at GPipe's shapes: path
+# (n)'s microbatch (B2 of its B8, bf16) and the dry run's tiny s2a step
+# (leg 1 on the card, f32)
+PIPE_ATTENTION_CASES = (("s2a pipe microbatch B2 T768 H16 D64", (2, 768, 16, 64, None)),
+                        ("dry run s2a B2 T32 H4 D32", (2, 32, 4, 32, None)))
 # --source-faults: faults planted in copies of the kernels' CUDA sources,
 # each of which the cases of its kernels must reject (K1's and K2's under
 # --codec-kernels, K5's under --int8-kernels, K3's, K4's and K6's under
@@ -901,13 +928,14 @@ def kernel_phase(torch, ops, part: str | None = None, parent_front=None,
         q, k, v = (normal(b, t, h, d) for _ in range(3))
         attention_f32_case(label, q, k, v, key_mask(b, t, lens))
     # K3-f32 with its LSE and K4's f32 kernel at the bf16 K4's cases
-    # (ATTENTION_TRAIN_CASES, f32 inputs), K4-f32 from K3-f32's LSE; the
-    # plain version takes the plain LSE.
+    # (ATTENTION_TRAIN_CASES + PIPE_ATTENTION_CASES, f32 inputs), K4-f32
+    # from K3-f32's LSE; the plain version takes the plain LSE.
     # Faults: delta dropped, the mask ignored, the last query tile's dO
     # dropped, q rounded to TF32. Library call: SDPA's f32 backward (forward
     # and backward timed, the forward subtracted). Bound: the five products
     # at the 3xTF32 rate.
-    for label, (b, t, h, d, lens) in ATTENTION_TRAIN_CASES if part in (None, "f32") else ():
+    for label, (b, t, h, d, lens) in (ATTENTION_TRAIN_CASES + PIPE_ATTENTION_CASES
+                                      if part in (None, "f32") else ()):
         q, k, v, g = (normal(b, t, h, d) for _ in range(4))
         n_keys = [t] * b if lens is None else list(lens)
         mask = key_mask(b, t, lens)
@@ -954,12 +982,14 @@ def kernel_phase(torch, ops, part: str | None = None, parent_front=None,
         return cases
 
     # K3 with its LSE and K4 (attention_bwd, both of its kernels) at
-    # ATTENTION_TRAIN_CASES (not under --int8-kernels). The library calls are SDPA with the same bool
+    # ATTENTION_TRAIN_CASES + PIPE_ATTENTION_CASES (not under --int8-kernels).
+    # The library calls are SDPA with the same bool
     # mask on inputs that require grad: for K3 its forward (which keeps its
     # LSE for the backward), for K4 its backward (forward and backward timed
     # together, the forward subtracted). K4's plain version takes the plain
     # LSE, so an LSE error of K3 also shows in dq, dk and dv.
-    for label, (b, t, h, d, lens) in ATTENTION_TRAIN_CASES if part in (None, "attention") else ():
+    for label, (b, t, h, d, lens) in (ATTENTION_TRAIN_CASES + PIPE_ATTENTION_CASES
+                                      if part in (None, "attention") else ()):
         q, k, v, g = (normal(b, t, h, d).to(bf16) for _ in range(4))
         mask = None
         n_keys = [t] * b
@@ -3694,6 +3724,226 @@ def multi_device_path(torch, dev, smi: str) -> dict:
     return counts
 
 
+PIPE_BATCH = 8  # path (n): B8 x 768, (d)'s micro-batch, in PIPE_MICRO microbatches of 2
+PIPE_MICRO = 4
+PIPE_STAGES = (4, 1)  # local pipe meshes: all stages in this process
+PIPE_REPEATS = 3  # timed steps of each, in turns
+# the leaves whose gradient the pipe writes itself: the side inputs'
+# projections and what feeds stage 0 (held one by one against forward_train)
+PIPE_FRONT_LEAVES = ("encoder.project_injection.", "semantic_embedding.", "mask_token",
+                     "acoustic_feat_proj.")
+DRYRUN_TIMEOUT_S = 300
+
+
+def pipe_attention_check(torch, model, loss, gen, smi: str) -> None:
+    """K3 with its LSE and K4 on the q, k, v of the first and the last
+    attention of one ``loss()`` forward (bf16 autocast, as path (n) runs it)
+    against the plain versions: output and gradients within REL_L2_TOL and
+    MAX_ABS_TOL of the largest value, the LSE within LSE_ABS_TOL. The
+    gradient dO is drawn from ``gen``."""
+    import edm_tts_tpu_torch.models.conformer.conformer as conformer_mod
+    from edm_tts_tpu_torch import ops
+
+    seen, true_mha = [], conformer_mod.mha
+
+    def recording_mha(q, k, v, **kw):
+        seen[1:] = [(q.clone(), k.clone(), v.clone())]
+        return true_mha(q, k, v, **kw)
+
+    conformer_mod.mha = recording_mha
+    try:
+        with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+            loss()
+    finally:
+        conformer_mod.mha = true_mha
+    if len(seen) != 2:
+        fail(f"pipeline (n): {len(seen)} attentions recorded")
+    for label, (q, k, v) in zip(("first", "last"), seen):
+        g = torch.randn(q.shape, generator=gen, device=q.device).to(q.dtype)
+        o, lse = ops.flash_mha(q, k, v, return_lse=True)
+        lse_ref = ops.attention_lse_reference(q, k)
+        held = {"attention": ((o,), (ops.mha_reference(q, k, v),)),
+                "attention_bwd": (ops.flash_mha_bwd(q, k, v, None, o, lse, g),
+                                  ops.flash_mha_bwd_reference(q, k, v, None, o, lse_ref, g))}
+        errs = {name: (max(rel_l2(torch, a, r) for a, r in zip(outs, refs)),
+                       max((a.float() - r.float()).abs().max().item()
+                           / r.float().abs().max().item() for a, r in zip(outs, refs)))
+                for name, (outs, refs) in held.items()}
+        lse_err = (lse - lse_ref).abs().max().item()
+        print(f"pipeline (n) K3 with LSE and K4 on the step's {label} attention "
+              f"{tuple(q.shape)} {q.dtype}: (relative l2, max abs / largest) {errs} (tol "
+              f"{REL_L2_TOL}, {MAX_ABS_TOL}), LSE max abs err {lse_err:.4g} (tol "
+              f"{LSE_ABS_TOL}) ({smi})", flush=True)
+        if not (all(r <= REL_L2_TOL and m <= MAX_ABS_TOL for r, m in errs.values())
+                and lse_err <= LSE_ABS_TOL):
+            fail(f"pipeline (n): K3 or K4 on the step's {label} attention differs from the "
+                 f"plain version: {errs}, LSE {lse_err}")
+
+
+def pipeline_path(torch, dev, smi: str) -> dict:
+    """(n): GPipe on one card. The full-width s2a (d)'s seeded init, bf16
+    autocast) on B8 x 768 in 4 microbatches through
+    ``pipelined_train_loss`` on a local pipe of 4 stages and of 1 (all
+    stages in this process; the hops are moves between the stages'
+    buffers): loss and every gradient equal to the bit between the two, each
+    within TRAIN_*_TOL of ``forward_train(..., mask_override=mask,
+    train=False)`` on the whole batch, and 64 K3 and 64 K4 launches a step
+    (16 blocks x 4 microbatches, no bubble ticks). Then ``python -m
+    edm_tts_tpu_torch.dryrun_multichip`` under ``torchrun --nproc_per_node
+    1`` (NCCL; leg 1 at one rank). Returns the launches of the pipe-4 step."""
+    import tempfile
+
+    import numpy as np
+
+    from edm_tts_tpu_torch.kernels import all_launches, reset_launches
+    from edm_tts_tpu_torch.models.s2a.pipeline import pipelined_train_loss
+    from edm_tts_tpu_torch.ops import cosine_schedule_mask
+    from edm_tts_tpu_torch.parallel.mesh import make_pipe_mesh
+    from edm_tts_tpu_torch.profile_synthesis import s2a_train_recipe
+    from edm_tts_tpu_torch.train import run_s2a
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pipe_")
+    try:
+        raw = s2a_train_recipe(os.path.join(tmp, "out"), os.path.join(tmp, "shards"), SEED,
+                               TRAIN_STEPS)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    model = run_s2a.build_model(raw, dev)
+    cfg = model.cfg
+    frames = int(raw["training_segment_length"] * cfg.codec.sample_rate / cfg.codec.hop_length)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 70)
+    ac = torch.randint(0, cfg.num_codevectors, (PIPE_BATCH, cfg.num_quantizers, frames),
+                       generator=gen, device=dev)
+    sem = torch.randint(0, cfg.num_semantic_tokens, (PIPE_BATCH, frames), generator=gen,
+                        device=dev)
+    mask = cosine_schedule_mask(gen, PIPE_BATCH, frames, device=dev)
+    trainable = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+
+    def step(loss_fn):
+        """loss_fn's loss and every trainable gradient, the wall seconds and
+        peak memory of the step, and its launches."""
+        model.zero_grad(set_to_none=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.enable_grad():
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                loss = loss_fn()
+            loss.backward()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = all_launches()
+        grads = {n: p.grad for n, p in trainable}
+        model.zero_grad(set_to_none=True)
+        return loss.detach(), grads, wall, torch.cuda.max_memory_allocated(), counts
+
+    def pipelined(stages):
+        mesh = make_pipe_mesh(stages, local=True)
+        return lambda: pipelined_train_loss(model, ac, sem, mask, mesh, n_micro=PIPE_MICRO)
+
+    def device_ms(loss_fn):
+        """One profiled step: the device's kernel milliseconds and kernels
+        (the device's activity only: tracing the host's ops costs seconds)."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            step(loss_fn)
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        return (sum(e.self_device_time_total for e in kernels) / 1e3,
+                sum(e.count for e in kernels))
+
+    def sequential():
+        return model.forward_train(ac, sem, mask_override=mask, train=False)["loss"]
+
+    depth = cfg.encoder_num_layers
+    want = no_launches(attention=depth * PIPE_MICRO, attention_bwd=depth * PIPE_MICRO)
+    step(pipelined(PIPE_STAGES[0]))  # warm-up
+    # the stages in turns, PIPE_REPEATS times; each repeat equal to the bit to the first
+    runs, walls, same = {}, {s: [] for s in PIPE_STAGES}, True
+    for _ in range(PIPE_REPEATS):
+        for s in PIPE_STAGES:
+            run = step(pipelined(s))
+            walls[s].append(run[2])
+            if s in runs:
+                same = same and torch.equal(run[0], runs[s][0]) and all(
+                    torch.equal(run[1][n], runs[s][1][n]) for n, _ in trainable)
+            else:
+                runs[s] = run
+    seq = step(sequential)
+    seq_walls = [seq[2]] + [step(sequential)[2] for _ in range(PIPE_REPEATS - 1)]
+    busy = {s: device_ms(pipelined(s)) for s in PIPE_STAGES}
+    busy["sequential"] = device_ms(sequential)
+    (l4, g4, _, peak4, counts), (l1, g1, _, peak1, counts1) = (runs[s] for s in PIPE_STAGES)
+    wall4, wall1, seq_wall = (statistics.median(w) for w in (*walls.values(), seq_walls))
+    bitwise = same and torch.equal(l4, l1) and all(torch.equal(g4[n], g1[n]) for n, _ in trainable)
+
+    def flat(g):
+        return torch.cat([g[n].float().flatten() for n, _ in trainable])
+
+    seq_loss, seq_grad = seq[0].item(), flat(seq[1])
+    gaps = {s: (abs(runs[s][0].item() - seq_loss) / abs(seq_loss),
+                rel_l2(torch, flat(runs[s][1]), seq_grad)) for s in PIPE_STAGES}
+    # each leaf's relative l2 too: the worst of all, and of the leaves whose
+    # gradient the pipe writes itself (side inputs and the feed into stage 0)
+    leaf = {s: {n: rel_l2(torch, runs[s][1][n].float(), seq[1][n].float())
+                for n, _ in trainable} for s in PIPE_STAGES}
+    front = [n for n, _ in trainable if n.startswith(PIPE_FRONT_LEAVES)]
+    worst = {s: (max(leaf[s], key=leaf[s].get), max(front, key=leaf[s].get))
+             for s in PIPE_STAGES}
+    print(f"pipeline (n) s2a B{PIPE_BATCH} x {frames} in {PIPE_MICRO} microbatches, bf16: "
+          f"pipe {PIPE_STAGES[0]} loss {l4.item():.7f} step {wall4:.4f} s (median of "
+          f"{[round(w, 4) for w in walls[PIPE_STAGES[0]]]}) peak device memory "
+          f"{peak4 / 2 ** 30:.2f} GiB launches {counts} expected {want}; pipe 1 loss "
+          f"{l1.item():.7f} step {wall1:.4f} s (of "
+          f"{[round(w, 4) for w in walls[PIPE_STAGES[1]]]}) peak {peak1 / 2 ** 30:.2f} GiB "
+          f"launches {counts1}; equal to the bit {bitwise} (each "
+          f"repeat too); sequential forward_train loss {seq_loss:.7f} step {seq_wall:.4f} s (of "
+          f"{[round(w, 4) for w in seq_walls]}) peak {seq[3] / 2 ** 30:.2f} GiB; loss relative "
+          f"gap / gradient relative l2 to it {gaps} (tol {TRAIN_LOSS_REL_TOL} / "
+          f"{TRAIN_GRAD_REL_L2_TOL}); worst leaf's relative l2 (all / the pipe's own "
+          f"{len(front)} leaves) "
+          f"{ {s: [(n, round(leaf[s][n], 6)) for n in worst[s]] for s in PIPE_STAGES} } "
+          f"(tol {TRAIN_GRAD_REL_L2_TOL} on the pipe's own); device kernel ms and kernels "
+          f"of one profiled step "
+          f"{busy}, busy share pipe {PIPE_STAGES[0]} {busy[PIPE_STAGES[0]][0] / 1e3 / wall4:.3f} "
+          f"pipe 1 {busy[PIPE_STAGES[1]][0] / 1e3 / wall1:.3f} sequential "
+          f"{busy['sequential'][0] / 1e3 / seq_wall:.3f} ({smi})", flush=True)
+    if counts != want or counts1 != want:
+        fail(f"pipeline (n): launches {counts} / {counts1} != {want}")
+    if not bitwise:
+        fail("pipeline (n): pipe 4 differs from pipe 1")
+    if not all(np.isfinite(x) for x in (l4.item(), seq_loss)) or not all(
+            lg <= TRAIN_LOSS_REL_TOL and gg <= TRAIN_GRAD_REL_L2_TOL for lg, gg in gaps.values()):
+        fail(f"pipeline (n): the pipelined step differs from forward_train: {gaps}")
+    if not all(leaf[s][n] <= TRAIN_GRAD_REL_L2_TOL for s in PIPE_STAGES for n in front):
+        fail(f"pipeline (n): a leaf the pipe writes differs from forward_train's: {worst}")
+    del runs, seq, g4, g1
+    pipe_attention_check(torch, model, lambda: pipelined(PIPE_STAGES[0])(), gen, smi)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the dry run's entry point on one NCCL rank
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "1",
+           "--master_addr", "127.0.0.1", "--master_port", str(free_port()), "-m",
+           "edm_tts_tpu_torch.dryrun_multichip"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=DRYRUN_TIMEOUT_S,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in proc.stdout.splitlines() if " OK" in ln]
+    print(f"pipeline (n) torchrun --nproc_per_node 1 -m edm_tts_tpu_torch.dryrun_multichip: "
+          f"exit {proc.returncode} in {wall:.1f} s: {lines} ({smi})", flush=True)
+    if proc.returncode != 0 or not lines:
+        fail(f"dryrun_multichip exited {proc.returncode}:\n{proc.stdout[-3000:]}\n"
+             f"{proc.stderr[-3000:]}")
+    return counts
+
+
 def main() -> int:
     import argparse
 
@@ -3719,6 +3969,8 @@ def main() -> int:
     mode.add_argument("--closed-loop", action="store_true",
                       help="only the build, the Conformer API check and the closed-loop "
                            "rehearsal (l); exit 3 when a check fails")
+    mode.add_argument("--pipeline", action="store_true",
+                      help="only the build and the GPipe path (n); exit 3 when a check fails")
     mode.add_argument("--dp-step", default=None, metavar="DIR",
                       help="(path (m)'s own process, under torchrun) the data-parallel s2a "
                            "steps on the shards in DIR")
@@ -3786,6 +4038,14 @@ def main() -> int:
     lib_path = build.build()
     build.library()
     print(f"build: {lib_path.name} in {time.perf_counter() - t0:.2f} s", flush=True)
+
+    if args.pipeline:
+        try:
+            pipeline_path(torch, dev, smi)
+        except CheckFailed as e:
+            print(e.code, file=sys.stderr, flush=True)
+            return 3
+        return 0
 
     if args.closed_loop:
         try:
@@ -3967,10 +4227,16 @@ def main() -> int:
 
     # 16. (m) the multi-device layer: a one-rank torchrun data-parallel step, engine replicas
     counts_m = multi_device_path(torch, dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 17. (n) GPipe on one card: a local pipe of 4 against 1 and the sequential step,
+    # then dryrun_multichip on one NCCL rank
+    counts_n = pipeline_path(torch, dev, smi)
 
     by_path = {"a": counts_a, "b": counts_b, "c": counts_c, "g": counts_g, "h": counts_h,
                "d": counts_d, "e": counts_e, "f": counts_f, "i": counts_i, "j": counts_j,
-               "k": counts_k, "l": counts_l, "m": counts_m, "api": counts_api}
+               "k": counts_k, "l": counts_l, "m": counts_m, "n": counts_n, "api": counts_api}
     record = {"kernels": []}
     for name in KERNELS:
         cs = cases[name]

@@ -213,21 +213,40 @@ class InjectionConformer(nn.Module):
         """
         cfg = self.cfg
         b, t = semantic_tokens.shape
-        sem = self.embed_semantic(semantic_tokens)
-        with torch.no_grad():  # the codec is frozen
-            ac_unred = self.acoustic_features_unreduced(acoustic_tokens)  # (B, Q, T, D)
-        ac0 = self.project_acoustic(ac_unred[:, 0])
         if mask_override is not None:
             mask = mask_override
         else:
             mask = cosine_schedule_mask(generator, b, t, device=semantic_tokens.device)
-        enc_in = torch.where(mask[:, :, None], sem + self.mask_token, sem + ac0)
-        n_inj = len(cfg.injection_layers)
-        teacher = torch.cumsum(ac_unred, dim=1)[:, :n_inj].transpose(0, 1)  # (n_inj, B, T, D)
+        enc_in, teacher = prepare_train_inputs(self, acoustic_tokens, semantic_tokens, mask)
         logits = self.forward_teacher_logits(
             enc_in, teacher, dropout_generator=generator if train else None)
-        targets = acoustic_tokens.long()
-        loss_mask = (torch.ones_like(targets, dtype=torch.bool) if cfg.loss_all
-                     else mask[:, None, :].expand(targets.shape))
-        loss = masked_cross_entropy(logits, targets, loss_mask)
+        loss = masked_cross_entropy(logits, *train_targets(cfg, acoustic_tokens, mask))
         return {"loss": loss, "mask": mask, "n_masked": mask.sum()}
+
+
+# -- the training forward's ends, shared with the pipelined forward
+# (models/s2a/pipeline.py) so that the two cannot drift --------------------
+def prepare_train_inputs(model: InjectionConformer, acoustic_tokens: torch.Tensor,
+                         semantic_tokens: torch.Tensor,
+                         mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The masked encoder input ``(B, T, H)`` and the teacher's cumulative
+    codec features ``(Qc, B, T, D)`` (the frozen codec runs without
+    gradient)."""
+    sem = model.embed_semantic(semantic_tokens)
+    with torch.no_grad():
+        ac_unred = model.acoustic_features_unreduced(acoustic_tokens)  # (B, Q, T, D)
+    ac0 = model.project_acoustic(ac_unred[:, 0])
+    enc_in = torch.where(mask[:, :, None], sem + model.mask_token, sem + ac0)
+    n_inj = len(model.cfg.injection_layers)
+    teacher = torch.cumsum(ac_unred, dim=1)[:, :n_inj].transpose(0, 1)
+    return enc_in, teacher
+
+
+def train_targets(cfg: S2AConfig, acoustic_tokens: torch.Tensor,
+                  mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The labels ``(B, Q, T)`` and the positions the loss counts: every one
+    with ``loss_all``, else the masked ones."""
+    targets = acoustic_tokens.long()
+    loss_mask = (torch.ones_like(targets, dtype=torch.bool) if cfg.loss_all
+                 else mask[:, None, :].expand(targets.shape))
+    return targets, loss_mask

@@ -17,7 +17,11 @@ split the batch:
 - ``model``: Megatron tensor parallelism of the Conformer blocks
   (``parallel/tensor.py``, JAX's ``param_shardings``);
 - ``sequence``: the ring of ``ops/ring_attention.py`` (present only when
-  ``n_seq > 1``, as in JAX).
+  ``n_seq > 1``, as in JAX);
+- ``pipe``: the GPipe stages of ``parallel/pipeline.py``, outermost
+  (``make_pipe_mesh``: (pipe, data, fsdp, model) with fsdp 1, JAX's
+  (pipe[, data][, model]) order), so the batch span and its groups are the
+  same as in every other layout.
 
 A group whose axis spans the whole world is the default group; an axis of
 size 1 has none (its collectives are skipped). A ``Mesh`` is also the
@@ -29,6 +33,7 @@ enclosing ``with mesh:``.
 from __future__ import annotations
 
 import itertools
+import math
 from typing import Mapping
 
 import torch
@@ -40,6 +45,7 @@ DATA_AXIS = "data"
 FSDP_AXIS = "fsdp"
 MODEL_AXIS = "model"  # tensor parallelism (attention heads / FF hidden)
 SEQUENCE_AXIS = "sequence"  # the ring of ring attention
+PIPE_AXIS = "pipe"  # the GPipe stages
 BATCH = "batch"  # data x fsdp: the ranks that split the batch
 
 _AMBIENT: list["Mesh"] = []
@@ -51,12 +57,16 @@ class Mesh:
 
     def __init__(self, shape: Mapping[str, int], *, local: bool = False):
         """``local``: this process alone (world 1, no groups), even inside a
-        process group: how a rank runs the one-process path beside it."""
+        process group: how a rank runs the one-process path beside it (a
+        local pipe mesh runs all its stages in this process). The layout
+        takes the first ``prod(shape)`` ranks; ``member`` is False on the
+        others, which only take part in making the groups."""
         self.shape = dict(shape)
         self.axis_names = tuple(self.shape)
         self.rank, self.world = (0, 1) if local else process_info()
         self.distributed = not local and is_distributed()
         sizes = [self.shape[a] for a in self.axis_names]
+        self.member = local or self.rank < math.prod(sizes)
         coords, r = [], self.rank
         for size in reversed(sizes):
             coords.append(r % size)
@@ -107,6 +117,11 @@ class Mesh:
         if axis == BATCH:
             return self.coords[DATA_AXIS] * self.shape[FSDP_AXIS] + self.coords[FSDP_AXIS]
         return self.coords.get(axis, 0)
+
+    def peer(self, axis: str, index: int) -> int:
+        """The rank at ``index`` along ``axis`` with this rank's other
+        coordinates (a global rank, as point-to-point ops take)."""
+        return self._ranks_of({**self.coords, axis: index})
 
     def group(self, axis: str):
         """The process group of the ranks that differ only along ``axis``, or
@@ -176,8 +191,46 @@ def make_hybrid_mesh(n_slices: int, n_fsdp: int = 1) -> Mesh:
     return make_mesh(world // n_fsdp, n_fsdp)
 
 
+def make_pipe_mesh(n_pipe: int, n_data: int = 1, n_model: int = 1, *,
+                   local: bool = False) -> Mesh | None:
+    """The (pipe, data, fsdp 1, model) layout of JAX's ``make_pipe_mesh``:
+    ``pipe`` outermost, so one stage's data replicas and model shards are
+    adjacent ranks, ``model`` innermost. It takes the first ``n_pipe *
+    n_data * n_model`` ranks (JAX's ``devices[:n]``); every process must
+    call it, and it returns None on the ranks it leaves out. ``local``: all
+    the stages in this process (no data or model ranks)."""
+    shape = {PIPE_AXIS: n_pipe, DATA_AXIS: n_data, FSDP_AXIS: 1, MODEL_AXIS: n_model}
+    if local:
+        if n_data * n_model != 1:
+            raise ValueError("a local pipe mesh has no data or model ranks")
+        return Mesh(shape, local=True)
+    _, world = process_info()
+    if n_pipe * n_data * n_model > world:
+        raise ValueError(f"{n_pipe}x{n_data}x{n_model} > {world} processes")
+    mesh = Mesh(shape)
+    return mesh if mesh.member else None
+
+
 def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     """Sum ``x`` in place over ``group`` (nothing for None)."""
     if group is not None:
         dist.all_reduce(x, group=group)
     return x
+
+
+class _SumParts(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x.clone(memory_format=torch.contiguous_format), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def sum_parts(x: torch.Tensor, group) -> torch.Tensor:
+    """The ranks' parts ``x`` summed over ``group``, out of place (``x`` for
+    None). Its backward passes the gradient through unchanged: every rank
+    backpropagates the same value downstream, so its own part's gradient is
+    that value's (Megatron's reduce-from-model)."""
+    return x if group is None else _SumParts.apply(x, group)

@@ -40,7 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from edm_tts_tpu_torch.models.conformer.conformer import ChanLayerNorm, ConformerBlock, _Pointwise
-from edm_tts_tpu_torch.parallel.mesh import MODEL_AXIS
+from edm_tts_tpu_torch.parallel.mesh import MODEL_AXIS, sum_parts
 
 # name within a block -> (split dim, halves split separately)
 BLOCK_RULES: dict[str, tuple[int, int]] = {
@@ -70,7 +70,7 @@ def unshard_tensor(locals_: list[torch.Tensor], dim: int, parts: int) -> torch.T
     return torch.cat([torch.cat([p[i] for p in pieces], dim) for i in range(parts)], dim)
 
 
-# -- Megatron's autograd pair ------------------------------------------------
+# -- Megatron's autograd pair (the reduce half is mesh.sum_parts) -------------
 class _CopyToModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -81,18 +81,6 @@ class _CopyToModel(torch.autograd.Function):
     def backward(ctx, g):
         g = g.clone(memory_format=torch.contiguous_format)
         dist.all_reduce(g, group=ctx.group)
-        return g, None
-
-
-class _ReduceFromModel(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, group):
-        x = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(x, group=group)
-        return x
-
-    @staticmethod
-    def backward(ctx, g):
         return g, None
 
 
@@ -122,7 +110,7 @@ class _RowParallel:
 
     def forward(self, x):
         y = F.linear(x, self.weight.reshape(self.weight.shape[0], -1))
-        return _ReduceFromModel.apply(y, self.group) + self.bias
+        return sum_parts(y, self.group) + self.bias
 
 
 class _RowLinear(_RowParallel, nn.Linear):

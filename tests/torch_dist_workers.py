@@ -33,6 +33,13 @@ def free_port() -> int:
 
 def spawn(scenario: str, world: int, tmp, timeout: float = 300.0) -> list[dict]:
     """Run ``scenario`` on ``world`` gloo ranks; returns each rank's results."""
+    return start(scenario, world, tmp, timeout)()
+
+
+def start(scenario: str, world: int, tmp, timeout: float = 300.0):
+    """Start ``scenario`` on ``world`` gloo ranks and return the function
+    that joins them (``spawn``'s second half), so the test can work while
+    they run."""
     port = free_port()
     procs = []
     for rank in range(world):
@@ -40,14 +47,22 @@ def spawn(scenario: str, world: int, tmp, timeout: float = 300.0) -> list[dict]:
                "LOCAL_RANK": str(rank), "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
                "OMP_NUM_THREADS": "1", "PYTHONPATH": REPO}
         env.pop("JAX_PLATFORMS", None)
-        procs.append(subprocess.Popen([sys.executable, __file__, scenario, str(tmp)], env=env,
-                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                      text=True))
+        # output to a file: a pipe that nobody reads while the test works
+        # would stall a worker once it fills
+        with open(os.path.join(str(tmp), f"{scenario}_rank{rank}.log"), "w") as log:
+            procs.append(subprocess.Popen([sys.executable, __file__, scenario, str(tmp)],
+                                          env=env, stdout=log, stderr=subprocess.STDOUT))
     deadline = time.monotonic() + timeout
+    return lambda: _join(scenario, world, tmp, timeout, procs, deadline)
+
+
+def _join(scenario, world, tmp, timeout, procs, deadline) -> list[dict]:
     outs = []
-    for p in procs:
+    for rank, p in enumerate(procs):
         try:
-            outs.append(p.communicate(timeout=max(deadline - time.monotonic(), 1.0))[0])
+            p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+            with open(os.path.join(str(tmp), f"{scenario}_rank{rank}.log")) as log:
+                outs.append(log.read())
         except subprocess.TimeoutExpired:
             for q in procs:
                 q.kill()
@@ -261,6 +276,133 @@ def scenario_tp(rank, world, tmp, inp):
     out["step"] = trainer.train_step(inp["s2a_batch"], 0)
     out["step_params"] = trainer.model_state()
     trainer.save(1)
+    return out
+
+
+def _stack_run(inp, mesh, grad: bool):
+    """The executor on the Conformer stack ``inp["stack"]`` over ``mesh``:
+    this rank's rows of every microbatch of ``inp["x"]`` (M, MB, T, D), the
+    outputs and, with ``grad``, the whole gradient of mean(out ** 2)."""
+    from edm_tts_tpu_torch.ops import rope_frequencies
+    from edm_tts_tpu_torch.parallel.pipeline import micro_rows, pipeline_apply, split_stages
+
+    if mesh is None:
+        return None
+    model = copy.deepcopy(inp["stack"])
+    plan = split_stages(model.layers, mesh, "layers")
+    x = torch.as_tensor(inp["x"])
+    m, mb = x.shape[:2]
+    rows = micro_rows(m * mb, m, mesh)
+    local = x.reshape(m * mb, *x.shape[2:])[rows].reshape(m, -1, *x.shape[2:])
+    rope = rope_frequencies(x.shape[2], model.cfg.dim_head)
+
+    def stage_fn(stage, act, side):
+        h = act["x"]
+        for g in plan.layers(stage):
+            h = model.layers[g](h, rope=rope)
+        return {"x": h}
+
+    with torch.set_grad_enabled(grad):
+        y = pipeline_apply(stage_fn, {"x": local}, mesh)["x"]
+        if grad:
+            y.square().mean().backward()
+    out = {"y": y.detach(), "rows": rows,
+           "names": [n for n, _ in model.named_parameters()]}
+    if grad:
+        out["grads"] = plan.gather_state({n: p.grad for n, p in model.named_parameters()})
+    return out
+
+
+def _passthrough(mesh):
+    """Pipe 2, M 3: stage 0 doubles x and adds m, stage 1 triples and adds
+    m; m, int ids beyond f32's integers and bool flags ride along. Returns
+    the outputs and d sum(out x) / dx."""
+    from edm_tts_tpu_torch.parallel.pipeline import pipeline_apply
+
+    if mesh is None:
+        return None
+
+    def stage_fn(stage, act, side):
+        return {"x": act["x"] * (2.0, 3.0)[stage] + act["m"], "m": act["m"], "ids": act["ids"],
+                "flag": act["flag"]}
+
+    x = torch.arange(6.0).reshape(3, 2).requires_grad_()
+    feed = {"x": x, "m": torch.ones(3, 2),
+            "ids": torch.tensor([[2 ** 24 + 1, 2 ** 30 - 3]] * 3, dtype=torch.int32),
+            "flag": torch.tensor([[True, False]] * 3)}
+    out = pipeline_apply(stage_fn, feed, mesh)
+    out["x"].sum().backward()
+    return {**{k: v.detach() for k, v in out.items()}, "dx": x.grad}
+
+
+def _s2a_run(inp, mesh):
+    """The pipelined s2a loss, gradients and logits over ``mesh`` on
+    ``inp["s2a"]`` with ``inp["batch"]`` (2 microbatches): the global loss,
+    this rank's rows and their logits, the whole gradients (gathered over
+    model, then pipe) and this rank's parameter names."""
+    from edm_tts_tpu_torch.models.s2a.pipeline import (
+        pipelined_forward_logits,
+        pipelined_train_loss,
+        prepare_train_inputs,
+    )
+    from edm_tts_tpu_torch.parallel.pipeline import micro_rows, reduce_gradients, split_stages
+    from edm_tts_tpu_torch.parallel.tensor import tensor_parallel
+
+    if mesh is None:
+        return None
+    model = copy.deepcopy(inp["s2a"])
+    plan = split_stages(model.encoder.layers, mesh, "encoder.layers")
+    tp = tensor_parallel(model, mesh) if mesh.size("model") > 1 else None
+    names = [n for n, _ in model.named_parameters()]
+    ac, sem, mask = (torch.as_tensor(inp["batch"][k]) for k in ("ac", "sem", "mask"))
+    loss = pipelined_train_loss(model, ac, sem, mask, mesh, n_micro=2)
+    loss.backward()
+    reduce_gradients(model, mesh)
+    grads = {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
+    if tp is not None:
+        grads = tp.gather_state(grads)
+    grads = plan.gather_state(grads)
+    rows = micro_rows(len(sem), 2, mesh)
+    with torch.no_grad():
+        enc_in, teacher = prepare_train_inputs(model, ac[rows], sem[rows], mask[rows])
+        logits = pipelined_forward_logits(model, enc_in, teacher, mesh, n_micro=2)
+    return {"loss": loss.item(), "rows": rows, "logits": logits, "grads": grads,
+            "names": names}
+
+
+# the pipe layouts of the GPipe scenarios: (n_pipe, n_data, n_model)
+GPIPE4 = {"pipe4": (4, 1, 1), "pipe2": (2, 1, 1), "pipe2_data2": (2, 2, 1),
+          "pipe2_model2": (2, 1, 2)}
+GPIPE8 = {"pipe4_data2": (4, 2, 1), "pipe4_model2": (4, 1, 2),
+          "pipe2_data2_model2": (2, 2, 2)}
+
+
+def scenario_gpipe4(rank, world, tmp, inp):
+    """4 ranks: the executor on a Conformer stack (pipe 4 with gradients,
+    pipe 2, pipe 2 x data 2, pass-through fields), the s2a walk on GPIPE4's
+    layouts and on a local pipe 4 in each process."""
+    from edm_tts_tpu_torch.parallel.mesh import make_pipe_mesh
+
+    out = {"stack4": _stack_run(inp, make_pipe_mesh(4), grad=True),
+           "stack2": _stack_run(inp, make_pipe_mesh(2), grad=False),
+           "stack2_data2": _stack_run(inp, make_pipe_mesh(2, n_data=2), grad=False),
+           "passthrough": _passthrough(make_pipe_mesh(2))}
+    for key, shape in GPIPE4.items():
+        out[key] = _s2a_run(inp, make_pipe_mesh(*shape))
+    out["pipe4_local"] = _s2a_run(inp, make_pipe_mesh(4, local=True))
+    return out
+
+
+def scenario_gpipe8(rank, world, tmp, inp):
+    """8 ranks: the s2a walk on GPIPE8's layouts, then every leg of
+    ``dryrun_multichip`` (gloo)."""
+    from edm_tts_tpu_torch import dryrun_multichip
+    from edm_tts_tpu_torch.parallel.mesh import make_pipe_mesh
+
+    out = {key: _s2a_run(inp, make_pipe_mesh(*shape)) for key, shape in GPIPE8.items()}
+    lines = []
+    out["dryrun"] = dryrun_multichip.run(torch.device("cpu"), log=lines.append)
+    out["dryrun_lines"] = lines
     return out
 
 
