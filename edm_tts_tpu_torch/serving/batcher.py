@@ -15,16 +15,31 @@ device access, so one program runs on the card at a time. Backpressure is
 a bounded queue; ``submit`` raises when it is full. The grouping and
 chunking are pinned equal to the JAX package's by
 tests/test_torch_serving.py.
+
+Each request is stamped three times on the ``perf_counter`` clock: when it
+is submitted, when the worker takes it from the queue, and when its engine
+call starts. ``stats()`` gives the tails of the phases between them over
+the last ``TAIL_WINDOW`` completed requests; while ``utils.profiling``
+records, each request's phases are the spans ``batcher.queued`` (submit to
+taken) and ``batcher.held`` (taken to its call), the worker's wait for work
+is ``batcher.collect`` and each engine call ``batcher.call``, which holds
+the call's request ids and is the parent of the engine's spans.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import itertools
 import queue
 import threading
 import time
 from concurrent.futures import Future
 from typing import Any, Callable
+
+from edm_tts_tpu_torch.utils.profiling import add_span, span
+
+TAIL_WINDOW = 1024  # completed requests the tails of ``stats()`` cover
 
 
 @dataclasses.dataclass
@@ -33,6 +48,20 @@ class Request:
     speaker: str
     seed: int = 0
     gt_length: int | None = None
+
+
+@dataclasses.dataclass
+class _Pending:
+    """A queued request, its Future, its id and its stamps."""
+    req: Request
+    fut: Future
+    rid: int
+    submitted: float
+    taken: float = 0.0
+
+
+def _nearest_rank(values: list[float], q: float) -> float:
+    return sorted(values)[max(0, -(-len(values) * q // 100) - 1)] if values else 0.0
 
 
 class DynamicBatcher:
@@ -69,6 +98,9 @@ class DynamicBatcher:
             "engine_calls": 0, "batched_requests": 0,
             "latency_s_sum": 0.0, "latency_s_max": 0.0,
         }
+        # (queued, held, latency) seconds of the last completed requests
+        self._phases: collections.deque = collections.deque(maxlen=TAIL_WINDOW)
+        self._ids = itertools.count()
         self._worker = threading.Thread(target=self._loop, daemon=True)
         self._worker.start()
 
@@ -79,16 +111,25 @@ class DynamicBatcher:
         if self._closed.is_set():
             raise RuntimeError("batcher is closed")
         fut: Future = Future()
-        self._q.put_nowait((req, fut, time.monotonic()))
+        self._q.put_nowait(_Pending(req, fut, next(self._ids), time.perf_counter()))
         with self._stats_lock:
             self._stats["requests"] += 1
         return fut
 
     def stats(self) -> dict:
         """Operational counters: request/batch counts, failures, mean and
-        max client-visible latency, current queue depth."""
+        max client-visible latency, current queue depth; and over the last
+        ``TAIL_WINDOW`` completed requests the p50 and p95 (nearest rank) of
+        the seconds each spent queued (submit to the worker taking it),
+        held (taken to the start of its engine call) and in all (submit to
+        its call's end): ``queued_s_p50`` ... ``latency_s_p95``."""
         with self._stats_lock:
             s = dict(self._stats)
+            phases = list(self._phases)
+        for i, name in enumerate(("queued", "held", "latency")):
+            values = [p[i] for p in phases]
+            for q in (50, 95):
+                s[f"{name}_s_p{q}"] = _nearest_rank(values, q)
         s["queue_depth"] = self._q.qsize()
         s["mean_batch"] = (
             s["batched_requests"] / s["engine_calls"]
@@ -105,18 +146,26 @@ class DynamicBatcher:
         if drain:
             self._q.join()
         # wake the worker if it is blocked on an empty queue
-        self._q.put((None, None, None))
+        self._q.put(None)
         self._worker.join(timeout=10)
 
     # -- worker side ------------------------------------------------------
-    def _collect(self) -> list[tuple[Request, Future]]:
+    def _take(self, item: _Pending | None, batch: list[_Pending]) -> bool:
+        """Stamp ``item`` and add it to ``batch``; False for the shutdown
+        sentinel."""
+        if item is None:
+            return False
+        item.taken = time.perf_counter()
+        batch.append(item)
+        return True
+
+    def _collect(self) -> list[_Pending]:
         """Block for the first request, then gather more until the batch
         window closes or the batch is full."""
-        first = self._q.get()
-        if first[0] is None:
+        batch: list[_Pending] = []
+        if not self._take(self._q.get(), batch):
             self._q.task_done()
             return []
-        batch = [first]
         deadline = time.monotonic() + self.max_wait
         while len(batch) < self.max_batch:
             timeout = deadline - time.monotonic()
@@ -126,13 +175,12 @@ class DynamicBatcher:
                 item = self._q.get(timeout=timeout)
             except queue.Empty:
                 break
-            if item[0] is None:
+            if not self._take(item, batch):
                 # re-post the shutdown sentinel so the NEXT _collect (which
                 # would otherwise block forever on the drained queue) sees it
                 self._q.task_done()
-                self._q.put((None, None, None))
+                self._q.put(None)
                 return batch
-            batch.append(item)
         # backlog drain for length-aware chunking: take what is already
         # queued (non-blocking — the window above is the only wait)
         while len(batch) < self.max_batch * self.lookahead:
@@ -140,16 +188,16 @@ class DynamicBatcher:
                 item = self._q.get_nowait()
             except queue.Empty:
                 break
-            if item[0] is None:
+            if not self._take(item, batch):
                 self._q.task_done()
-                self._q.put((None, None, None))
+                self._q.put(None)
                 break
-            batch.append(item)
         return batch
 
     def _loop(self) -> None:
         while True:
-            batch = self._collect()
+            with span("batcher.collect"):
+                batch = self._collect()
             if not batch:
                 if self._closed.is_set():
                     return
@@ -160,7 +208,7 @@ class DynamicBatcher:
             # batch from silently discarding a request's explicit length
             groups: dict[tuple[str, int, bool], list] = {}
             for item in batch:
-                req = item[0]
+                req = item.req
                 key = (req.speaker, req.seed, req.gt_length is not None)
                 groups.setdefault(key, []).append(item)
             for (speaker, seed, has_gt), group in groups.items():
@@ -168,8 +216,8 @@ class DynamicBatcher:
                 # cut max_batch slices — each chunk's canvas is set by its
                 # own max, so short requests stop paying for long ones
                 group.sort(
-                    key=lambda it: it[0].gt_length
-                    if it[0].gt_length is not None else len(it[0].text)
+                    key=lambda it: it.req.gt_length
+                    if it.req.gt_length is not None else len(it.req.text)
                 )
                 for lo in range(0, len(group), self.max_batch):
                     self._dispatch(
@@ -178,27 +226,32 @@ class DynamicBatcher:
             for _ in batch:
                 self._q.task_done()
 
-    def _dispatch(self, items, speaker, seed, has_gt) -> None:
+    def _dispatch(self, items: list[_Pending], speaker, seed, has_gt) -> None:
         """One engine call for one length-homogeneous chunk."""
-        reqs = [r for r, _, _ in items]
-        futs = [f for _, f, _ in items]
-        t0s = [t for _, _, t in items]
+        reqs = [it.req for it in items]
+        futs = [it.fut for it in items]
         kwargs = {"seed": seed}
         if has_gt:
             kwargs["gt_lengths"] = [r.gt_length for r in reqs]
         try:
-            wavs = self._synth([r.text for r in reqs], speaker, **kwargs)
-            now = time.monotonic()
+            with span("batcher.call", requests=[it.rid for it in items]) as s:
+                start = time.perf_counter() if s is None else s.start
+                for it in items:
+                    add_span("batcher.queued", it.submitted, it.taken, requests=(it.rid,))
+                    add_span("batcher.held", it.taken, start, requests=(it.rid,))
+                wavs = self._synth([r.text for r in reqs], speaker, **kwargs)
+            now = time.perf_counter()
             with self._stats_lock:
                 self._stats["engine_calls"] += 1
                 self._stats["batched_requests"] += len(reqs)
                 self._stats["completed"] += len(reqs)
-                for t0 in t0s:
-                    lat = now - t0
+                for it in items:
+                    lat = now - it.submitted
                     self._stats["latency_s_sum"] += lat
                     self._stats["latency_s_max"] = max(
                         self._stats["latency_s_max"], lat
                     )
+                    self._phases.append((it.taken - it.submitted, start - it.taken, lat))
             for fut, wav in zip(futs, wavs):
                 fut.set_result(wav)
         except Exception as e:  # noqa: BLE001 — fail the requests, not the server

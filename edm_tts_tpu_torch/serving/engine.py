@@ -26,6 +26,18 @@ and their first row's index as the samplers' ``row_offset``; the t2s stage
 ends on every replica before the s2a canvas length is taken from all rows,
 so the audio is the single-device engine's.
 
+Spans (``utils.profiling``, while it records): ``engine.synthesize``
+around a call, with its ``t2s_positions`` (the bucket's rows times the t2s
+canvas, ``Lt + 4 + max_speech_len``) and ``t2s_used`` (over the real rows,
+4 + text bytes + speech frames: the positions a row's own canvas would
+hold); inside it ``engine.t2s``, which ends at the copy of the lengths to
+the host and so holds the t2s stage's device time. A single-device engine
+then records ``engine.s2a`` (the host's enqueue of the s2a sampler alone)
+and ``engine.decode``, which ends at the copy of the waveforms to the host
+and so holds the device time of the s2a sampler and the decode; a mesh
+engine runs each replica's s2a and decode as one task, which no span
+splits.
+
 Randomness: one CPU ``torch.Generator`` seeded with the request's seed
 drives both samplers. It cannot reproduce the JAX package's
 ``jax.random`` streams, so the two engines agree only at temperature 0 with
@@ -48,6 +60,7 @@ from edm_tts_tpu_torch.models.tokenizer import AudioTokenizer, SemanticTokenizer
 from edm_tts_tpu_torch.ops.resample import resample
 from edm_tts_tpu_torch.serving.chunking import default_chunk_chars, join_waveforms, split_text
 from edm_tts_tpu_torch.utils.bucketing import bucket_batch, bucket_length
+from edm_tts_tpu_torch.utils.profiling import span
 
 
 def no_grad(fn):
@@ -229,11 +242,21 @@ class TTSEngine:
         if b_real < 1:
             raise ValueError("synthesize: no texts")
         b = bucket_batch(b_real, self.batch_buckets)
-        dev = self.device
-
         byte_seqs = [[c + 5 for c in t.encode("utf-8")] for t in texts]
         byte_seqs += [byte_seqs[0]] * (b - b_real)
         lt = bucket_length(max(len(s) for s in byte_seqs), self.text_bucket)
+        with span("engine.synthesize", t2s_positions=b * (lt + 4 + self.max_speech_len)) as s:
+            audio, lengths = self._synthesize(byte_seqs, lt, prompt, seed, gt_lengths, b_real)
+            if s is not None:
+                s.counts["t2s_used"] = int(lengths[:b_real].sum()) + sum(
+                    4 + len(q) for q in byte_seqs[:b_real])
+        return [audio[i, : int(lengths[i]) * self.hop_length] for i in range(b_real)]
+
+    def _synthesize(self, byte_seqs, lt, prompt, seed, gt_lengths, b_real):
+        """(waveforms ``(b, samples)``, frames ``(b,)``), both numpy, of the
+        bucket's ``b`` rows."""
+        b = len(byte_seqs)
+        dev = self.device
         text_tokens = torch.tensor([s + [0] * (lt - len(s)) for s in byte_seqs], device=dev)
         text_lengths = torch.tensor([len(s) for s in byte_seqs], device=dev)
         gt = None
@@ -260,29 +283,35 @@ class TTSEngine:
             lengths = t2s_out["lengths"]
             semantic_valid = torch.arange(n_max, device=device)[None, :] < lengths[:, None]
             pa, ps = (x.to(device) for x in (prompt.acoustic_codes, prompt.semantic_codes))
-            codes = s2a_sample(
+            return s2a_sample(
                 s2a, t2s_out["semantic_tokens"][:, :n_max], pa.expand(rows, *pa.shape[1:]),
                 ps.expand(rows, *ps.shape[1:]), generator, steps=self.s2a_steps,
                 temperature=self.temperature, semantic_valid=semantic_valid, row_offset=i * rows)
+
+        def run_decode(i, codes):
+            s2a, lengths = self.replicas[i][1], stage1[i][0]["lengths"]
             return s2a.acoustic_model.decode_from_codes(codes, lengths)[..., 0].float().cpu()
 
         if n == 1:
-            stage1 = [run_t2s(0)]
-            lengths = stage1[0][0]["lengths"].cpu()
+            with span("engine.t2s"):
+                stage1 = [run_t2s(0)]
+                lengths = stage1[0][0]["lengths"].cpu()
             n_max = bucket_length(int(lengths.max()), self.length_bucket, self.max_speech_len)
-            audio = run_s2a(0, *stage1[0], n_max)
+            with span("engine.s2a"):
+                codes = run_s2a(0, *stage1[0], n_max)
+            with span("engine.decode"):
+                audio = run_decode(0, codes)
         else:
             with concurrent.futures.ThreadPoolExecutor(n) as pool:
-                stage1 = list(pool.map(no_grad(run_t2s), range(n)))
-                # the canvas of every row of the batch, whichever replica holds it
-                lengths = torch.cat([out["lengths"].cpu() for out, _ in stage1])
+                with span("engine.t2s"):
+                    stage1 = list(pool.map(no_grad(run_t2s), range(n)))
+                    # the canvas of every row of the batch, whichever replica holds it
+                    lengths = torch.cat([out["lengths"].cpu() for out, _ in stage1])
                 n_max = bucket_length(int(lengths.max()), self.length_bucket,
                                       self.max_speech_len)
-                audio = torch.cat(list(pool.map(no_grad(lambda i: run_s2a(i, *stage1[i], n_max)),
-                                                range(n))))
-        audio = audio.numpy()
-        lengths = lengths.numpy()
-        return [audio[i, : int(lengths[i]) * self.hop_length] for i in range(b_real)]
+                audio = torch.cat(list(pool.map(
+                    no_grad(lambda i: run_decode(i, run_s2a(i, *stage1[i], n_max))), range(n))))
+        return audio.numpy(), lengths.numpy()
 
     def synthesize_long(
         self,

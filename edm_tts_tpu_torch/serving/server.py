@@ -22,6 +22,9 @@ Endpoints:
                      -> 400 with the error's text.
   GET  /healthz      -> {"ok": true, "speakers": [...]}
   GET  /stats        -> batcher counters (latency, batch sizes, queue depth)
+                     and, over the last 1,024 completed requests, the p50
+                     and p95 seconds queued, held for their engine call and
+                     in all (``DynamicBatcher.stats``)
 
 Error mapping: unknown speaker / bad JSON -> 400, saturated queue -> 503
 (backpressure), synthesis failure -> 500 with the exception text.

@@ -54,7 +54,7 @@ from edm_tts_tpu_torch.train.preemption import PreemptionGuard
 from edm_tts_tpu_torch.train.trainer import SilentMetricLogger, fold_in
 from edm_tts_tpu_torch.utils import hub
 from edm_tts_tpu_torch.utils.logging import MetricLogger, logger
-from edm_tts_tpu_torch.utils.profiling import step_annotation
+from edm_tts_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -212,7 +212,7 @@ class GANTrainer:
                 audio = self.mesh.local_rows({"a": audio})["a"]
             audio = audio.to(self.device)
             self.clock.start()
-            with step_annotation("gan_train", step):
+            with span("gan.step"):
                 metrics = gan_train_step(
                     self.codec, self.disc, self.recon_loss, self.g_opt, self.d_opt, audio,
                     generator=gen, thresholds=thresholds, lambdas=self.lambdas,

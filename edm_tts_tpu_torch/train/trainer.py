@@ -10,9 +10,16 @@ the loss function chooses the compute dtype (``run_s2a`` runs the forward
 under bf16 autocast, as the JAX package builds its modules with
 ``dtype=bf16``, or in f32 with ``bf16: false``). ``watch`` adds per-tensor
 norms to the logged metrics (``train/watch.py``), ``trackers`` names remote
-trackers that receive every logged record (``utils/logging.py``), and each
-step runs inside a ``step_annotation`` range, as the JAX loop's
-``StepTraceAnnotation``, so a ``utils.profiling.trace`` names its steps.
+trackers that receive every logged record (``utils/logging.py``).
+
+Spans (``utils.profiling``, while it records; each a named range in a
+``utils.profiling.trace``, as the JAX loop's ``StepTraceAnnotation``):
+``train.step`` around ``train_step``; inside it, per micro-batch,
+``train.forward`` (the loss function) and ``train.backward``, then
+``train.reduce`` (the all-reduce of the sums and ``reduce_gradients``) and
+``train.optimizer`` (``watch`` when on and ``AdamW.apply``, whose clipping
+test waits for the gradient norm, so the span also holds the device's
+backlog of the step).
 
 Randomness: each step's generator is seeded from ``(seed, step)`` (and
 each micro-batch's from that and its index), as the JAX loop folds the step
@@ -52,7 +59,7 @@ from edm_tts_tpu_torch.train.optim import AdamW, warmup_cosine_schedule
 from edm_tts_tpu_torch.train.preemption import PreemptionGuard
 from edm_tts_tpu_torch.train.watch import watch_metrics
 from edm_tts_tpu_torch.utils.logging import MetricLogger, logger
-from edm_tts_tpu_torch.utils.profiling import step_annotation
+from edm_tts_tpu_torch.utils.profiling import span
 
 _MIX = 0x9E3779B97F4A7C15  # 2^64 / golden ratio
 
@@ -166,24 +173,28 @@ class Trainer:
         ``rank * micro_batches + i`` of the global batch; their weighted
         sums are reduced over data x fsdp, and the optimizer takes the global
         masked-mean gradient. Returns the step's metrics as device scalars."""
-        for p in self.optimizer.params:
-            p.grad = None
-        n_micro = max(1, self.args.micro_batches)
-        batch = self._to_device(self.mesh.local_rows(batch))
-        with torch.enable_grad(), self.mesh:
-            sums, w_sum = self._weighted_sums(batch, fold_in(self.args.seed, step), n_micro,
-                                              self.mesh.index(BATCH) * n_micro)
-        keys = list(sums)
-        vec = all_reduce(torch.stack([w_sum] + [sums[k] for k in keys]),
-                         self.mesh.group(BATCH))
-        metrics = {k: vec[i + 1] / vec[0] for i, k in enumerate(keys)}
-        g = self.optimizer.reduce_gradients(vec[0])
-        if self.args.watch:  # the gradient before clipping, the parameters before the update
-            metrics.update(watch_metrics(
-                self.args.watch, grads=self._whole(self.optimizer.full_gradients(g)),
-                params=self._whole(dict(self.optimizer.named))))
-        metrics.update(self.optimizer.apply(g, skip_nonfinite=self.args.skip_nonfinite_updates))
-        return metrics
+        with span("train.step"):
+            for p in self.optimizer.params:
+                p.grad = None
+            n_micro = max(1, self.args.micro_batches)
+            batch = self._to_device(self.mesh.local_rows(batch))
+            with torch.enable_grad(), self.mesh:
+                sums, w_sum = self._weighted_sums(batch, fold_in(self.args.seed, step), n_micro,
+                                                  self.mesh.index(BATCH) * n_micro)
+            with span("train.reduce"):
+                keys = list(sums)
+                vec = all_reduce(torch.stack([w_sum] + [sums[k] for k in keys]),
+                                 self.mesh.group(BATCH))
+                metrics = {k: vec[i + 1] / vec[0] for i, k in enumerate(keys)}
+                g = self.optimizer.reduce_gradients(vec[0])
+            with span("train.optimizer"):
+                if self.args.watch:  # the gradient before clipping, the parameters before it
+                    metrics.update(watch_metrics(
+                        self.args.watch, grads=self._whole(self.optimizer.full_gradients(g)),
+                        params=self._whole(dict(self.optimizer.named))))
+                metrics.update(self.optimizer.apply(
+                    g, skip_nonfinite=self.args.skip_nonfinite_updates))
+            return metrics
 
     def _whole(self, state: dict) -> dict:
         """Whole tensors from this rank's model shards (a collective under
@@ -202,12 +213,14 @@ class Trainer:
         w_sum = torch.zeros((), device=self.device)
         for i in range(n_micro):
             micro = {k: c[i] for k, c in chunks.items()}
-            loss, metrics = self.loss_fn(micro, self._generator(fold_in(step_seed, first + i)))
+            with span("train.forward"):
+                loss, metrics = self.loss_fn(micro, self._generator(fold_in(step_seed, first + i)))
             metrics = dict(metrics)
             w = metrics.pop("loss_weight", 1.0)
             w = torch.as_tensor(1.0 if alone else w, dtype=torch.float32, device=self.device)
-            # d(loss * w)/dp = w g: the weighted term, summed in p.grad
-            (loss if alone else loss * w).backward()
+            with span("train.backward"):
+                # d(loss * w)/dp = w g: the weighted term, summed in p.grad
+                (loss if alone else loss * w).backward()
             metrics["loss"] = loss.detach()
             for k, v in metrics.items():
                 sums[k] = sums.get(k, 0.0) + w * v.detach().float()
@@ -277,8 +290,7 @@ class Trainer:
         step = start_step
         for step in range(start_step, args.max_steps):
             batch = next(train_iter)
-            with step_annotation("train", step):
-                metrics = self.train_step(batch, step)
+            metrics = self.train_step(batch, step)
             if (step + 1) % args.logging_steps == 0:
                 # one transfer for every scalar; it waits for the step
                 values = torch.stack([torch.as_tensor(v, dtype=torch.float32).to(self.device)

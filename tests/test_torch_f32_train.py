@@ -46,7 +46,7 @@ from edm_tts_tpu_torch.train import run_s2a, run_t2s, watch
 from edm_tts_tpu_torch.train.optim import freeze_submodule
 from edm_tts_tpu_torch.train.trainer import Trainer, TrainingArguments
 from edm_tts_tpu_torch.utils import logging as port_logging
-from edm_tts_tpu_torch.utils.profiling import TRACE_NAME, step_annotation, timed, trace
+from edm_tts_tpu_torch.utils.profiling import TRACE_NAME, span, trace
 from edm_tts_tpu_torch.utils.trackers import MemoryTracker
 from torch_port_parity import s2a_pair, t2s_pair
 
@@ -209,8 +209,8 @@ def test_tracker_gets_every_record_and_a_failing_one_is_ignored(tmp_path):
 
 
 def test_trace_names_each_training_step(tmp_path):
-    """A profiler trace around 3 steps of the port's trainer holds one range
-    per step, named by ``step_annotation``."""
+    """A profiler trace around 3 steps of the port's trainer holds one
+    ``train.step`` range per step and the phases of each."""
     model = s2a_pair(seed=3)[2]
     freeze_submodule(model, "acoustic_model")
     _, loss_fn = run_s2a.s2a_loss(model, bf16=False)
@@ -221,13 +221,15 @@ def test_trace_names_each_training_step(tmp_path):
     args = TrainingArguments(output_dir=str(tmp_path / "out"), **{
         **LOOP, "per_device_train_batch_size": 2, "watch": None})
     trainer = Trainer(args, model, loss_fn, device="cpu")
-    with trace(str(tmp_path / "prof")), timed("three steps", sync=True):
+    with trace(str(tmp_path / "prof")):
         trainer.train(iter(batches))
     events = json.loads((tmp_path / "prof" / TRACE_NAME).read_text())["traceEvents"]
-    names = {e.get("name") for e in events}
-    assert {"train step 0", "train step 1", "train step 2"} <= names
-    with step_annotation("eval", 9):  # outside a trace it is a no-op range
-        pass
+    names = [e.get("name") for e in events if e.get("cat") == "user_annotation"]
+    assert names.count("train.step") == 3
+    for phase in ("train.forward", "train.backward", "train.reduce", "train.optimizer"):
+        assert names.count(phase) == 3, phase
+    with span("eval.step") as s:  # outside a trace it records nothing
+        assert s is None
 
 
 @pytest.mark.parametrize("t,lens,d", [(35, (30, 35), 20), (24, (17, 24), 24), (40, None, 12)])
